@@ -1,0 +1,23 @@
+"""ch_shrinkwrap_torch — NanoWrap on PyTorch and CUDA (NVIDIA Hopper).
+
+The PyTorch port of the JAX package that sits beside it in this
+repository.  Module names follow the JAX package so every module's
+counterpart is easy to find:
+
+- ``mesh``    — host triangle mesh, remeshing, marching seed surface
+                (numpy + the native C++ topology engine in ``native``).
+- ``ops``     — device compute on torch tensors: normals, curvature,
+                padded mesh arrays, nearest-face correspondence, and the
+                three hand-written CUDA kernels (``cuda_window``,
+                ``cuda_scatter``, ``cuda_gather``; sources in ``csrc/``,
+                built by ``ops/_build.py``).
+- ``solver``  — the conjugate-gradient block ``cg_block``.
+- ``models``  — ``MembraneMesh`` and its ``shrink_wrap`` fit.
+- ``convert`` — carries fit state from numpy into the port's tensors.
+
+Entry points run on ``cuda`` unless the caller passes
+``device='cpu'``; on the CPU every kernel wrapper runs its plain
+PyTorch version.
+"""
+
+__version__ = "0.1.0"

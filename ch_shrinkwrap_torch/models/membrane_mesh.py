@@ -1,0 +1,574 @@
+"""MembraneMesh — the NanoWrap model and its shrink_wrap fit.
+
+Counterpart of the JAX package's ``models/membrane_mesh.py`` (itself a
+rebuild of the reference's Cython ``MembraneMesh``,
+ch_shrinkwrap/_membrane_mesh.pyx:78-1681), limited to the fit with
+remeshing: the host object owns the compact mesh and the fit schedule;
+every CG block (``remesh_frequency`` iterations) runs ``cg_block`` on the
+mesh's torch device; between blocks the host runs short-edge cleanup and
+the native remesh on the edge-length schedule, then re-pads the arrays.
+
+Not ported yet (they raise ``NotImplementedError``): neck removal
+(``neck_first_iter > 0``), hole punching / Delaunay remeshing
+(``delaunay_remesh_frequency <= max_iter``), the shrink prior
+(``shrink_weight > 0``), multi-device fits, and capacity modes other
+than ``'final'``.
+"""
+
+from __future__ import annotations
+
+import logging
+import time
+
+import numpy as np
+import torch
+
+from ..mesh.core import TriangleMesh
+from ..mesh import remesh as _remesh
+from ..ops import meshdata
+from ..ops import curvature as _curv
+from ..ops import correspondence as _corr
+from ..ops.ordering import fit_point_order
+from ..solver.shrinkwrap import block_call
+from ..utils.tracing import FitTrace
+
+logger = logging.getLogger(__name__)
+
+DESCENT_METHODS = ['conjugate_gradient']
+DEFAULT_DESCENT_METHOD = 'conjugate_gradient'
+
+KBT = _curv.KBT
+
+
+class MembraneMesh(TriangleMesh):
+    """Triangle mesh with Canham-Helfrich state and the shrink_wrap fit.
+
+    Accepts ``(vertices, faces)`` or ``mesh=...`` plus keyword overrides
+    for every optimizer/topology parameter, as the reference does
+    (_membrane_mesh.pyx:79-120).  ``device`` (default ``'cuda'``) is
+    where the fit's tensors live; pass ``device='cpu'`` to run the plain
+    PyTorch versions of the kernels.
+    """
+
+    def __init__(self, vertices=None, faces=None, mesh=None, device='cuda',
+                 **kwargs):
+        # bending stiffness (kBT-scaled eV, pyx:82-84)
+        self.kc = 20.0 * KBT
+        self.kg = -20.0 * KBT
+        self.c0 = 0.0
+
+        # optimizer parameters (pyx:95-102)
+        self.step_size = 1.0
+        self.beta_1 = 0.8
+        self.beta_2 = 0.7
+        self.eps = 1e-8
+        self.max_iter = 250
+        self.remesh_frequency = 100
+        self.delaunay_remesh_frequency = 150
+        self.delaunay_eps = 1.0
+
+        self.search_k = 200
+        self.search_rad = 100
+        self.skip_prob = 0.0
+        self.smooth_curvature = True
+
+        self.neck_threshold_low = -1e-4
+        self.neck_threshold_high = 1e-2
+        self.neck_first_iter = -1
+        self.remesh_collapse_veto = False
+        self.remesh_collapse_veto_cos = 0.5
+        self.shrink_weight = 0.0
+        self.truncate_at = 2 ** 31
+        # skip the internal remesh of the boundary short-edge cleanup:
+        # the scheduled remesh follows at the same boundary
+        self.defer_boundary_remesh = True
+
+        # capacity quantum of the padded arrays; 'final' pads every
+        # block to one capacity predicted from the edge-length schedule
+        self.pad_quantum = 1024
+        self.capacity_mode = 'final'
+        self.face_chunk = 2048
+        # correspondence: 'brute' (exact), 'windowed' (K1 + K2), or
+        # 'auto' (windowed once N*F crosses the brute-force budget)
+        self.corr_method = 'auto'
+        # padded vertex count above which the gathers run through K3
+        self.ring_gather_min_verts = 32768
+
+        self.device = torch.device(device)
+        self._points = None
+        self._sigma = None
+        self._last_diag = None
+        self._curv_state = None
+        self.mdh = {}
+        self.trace = None
+
+        TriangleMesh.__init__(self, vertices, faces, mesh, **kwargs)
+
+        self.vertex_properties = ['E', 'curvature_principal0',
+                                  'curvature_principal1', 'point_dis',
+                                  'point_influence']
+        self.vertex_vector_properties = ['S0', 'S1', 'S2', 'S3']
+
+    # ------------------------------------------------------------------
+    # curvature state (cached, recomputed on demand)
+
+    def _invalidate(self):
+        TriangleMesh._invalidate(self)
+        self._curv_state = None
+
+    def _invalidate_geometry(self):
+        TriangleMesh._invalidate_geometry(self)
+        self._curv_state = None
+
+    def _initialize_curvature_vectors(self):
+        """Reference API parity (pyx:188): drop cached curvature."""
+        self._curv_state = None
+
+    def _padded_meshdata(self):
+        """Padded arrays (power-of-two capacity buckets) for diagnostics
+        and curvature, cached on the topology revision; a position-only
+        change refreshes just the positions."""
+        q = self.pad_quantum
+        cached = getattr(self, '_diag_ma_cache', None)
+        if cached is not None and cached[0] == self._topo_rev:
+            rev, ma, geom_rev = cached
+            if geom_rev != self._geom_rev:
+                pos = torch.zeros_like(ma.positions)
+                pos[:self.vertices.shape[0]] = torch.from_numpy(
+                    self.vertices).to(pos.device)
+                ma = ma._replace(positions=pos)
+                self._diag_ma_cache = (rev, ma, self._geom_rev)
+            return ma
+        ma = meshdata.from_mesh(
+            self, v_cap=meshdata.pow2_bucket(self.vertices.shape[0], q),
+            f_cap=meshdata.pow2_bucket(self.faces.shape[0], q), quantum=q,
+            device=self.device)
+        self._diag_ma_cache = (self._topo_rev, ma, self._geom_rev)
+        return ma
+
+    def _populate_curvature_grad(self):
+        ma = self._padded_meshdata()
+        st = _curv.curvature_grad(
+            ma.positions, ma.faces, ma.f_mask, ma.v_mask, ma.nbr_v,
+            ma.nbr_f, kc=self.kc, kg=self.kg, c0=self.c0)
+        self._curv_state = {'_dev': st}
+        return self._curv_state
+
+    def _curv(self, key):
+        if self._curv_state is None:
+            if key == 'K':
+                # K-only fast path: the native host kernel
+                from .. import native
+                K_nat = native.gaussian_k(self.vertices, self.faces)
+                if K_nat is not None:
+                    self._curv_state = {'_native_K': K_nat}
+            if self._curv_state is None:
+                self._populate_curvature_grad()
+        st = self._curv_state
+        if key not in st:
+            if key == 'K' and '_native_K' in st:
+                out = st['_native_K'][:self.vertices.shape[0]]
+                if self.smooth_curvature:
+                    out = self.smooth_per_vertex_data(out)
+                st[key] = out
+                return out
+            if '_dev' not in st:
+                st = self._populate_curvature_grad()
+            V = self.vertices.shape[0]
+            out = getattr(st['_dev'], key).cpu().numpy()[:V]
+            if self.smooth_curvature and key in ('H', 'K', 'k_0', 'k_1'):
+                out = self.smooth_per_vertex_data(out)
+            st[key] = out
+        return st[key]
+
+    @property
+    def curvature_mean(self):
+        return self._curv('H')
+
+    @property
+    def curvature_gaussian(self):
+        return self._curv('K')
+
+    @property
+    def curvature_principal0(self):
+        return self._curv('k_0')
+
+    @property
+    def curvature_principal1(self):
+        return self._curv('k_1')
+
+    @property
+    def eigenvector_principal0(self):
+        return self._curv('e_0')
+
+    @property
+    def eigenvector_principal1(self):
+        return self._curv('e_1')
+
+    @property
+    def E(self):
+        return np.nan_to_num(self._curv('E'))
+
+    @property
+    def pE(self):
+        return np.nan_to_num(self._curv('pE'))
+
+    def curvature_grad(self, dN=0.1, skip_prob=0.0):
+        """Bending-energy gradient along vertex normals (pyx:349-496)."""
+        return self._curv('dEdN')
+
+    # ------------------------------------------------------------------
+    # optimizer diagnostics (pyx:1563-1634)
+
+    def _diag(self):
+        if self._last_diag is None:
+            raise RuntimeError('no solver diagnostics yet - run '
+                               'shrink_wrap first')
+        return self._last_diag
+
+    def _S_col(self, i):
+        V = self.vertices.shape[0]
+        S = self._diag().S.cpu().numpy()
+        if i >= S.shape[-1]:
+            return np.zeros((V, 3), np.float32)
+        if S.shape[0] < V:
+            # topology changed since the last CG block (e.g. trailing
+            # remesh); pad the stale diagnostic
+            out = np.zeros((V, 3), np.float32)
+            out[:S.shape[0]] = S[:, :, i]
+            return out
+        return S[:V, :, i]
+
+    @property
+    def S0(self):
+        return self._S_col(0)
+
+    @property
+    def S1(self):
+        return self._S_col(1)
+
+    @property
+    def S2(self):
+        return self._S_col(2)
+
+    @property
+    def S3(self):
+        return self._S_col(3)
+
+    @property
+    def point_dis(self):
+        s0 = self.S0
+        return np.sqrt((s0 * s0).sum(1))
+
+    @property
+    def point_influence(self):
+        """|A^T 1| per vertex: the last CG block's value while it covers
+        the mesh, else recomputed from the cached point cloud."""
+        V = self.vertices.shape[0]
+        if self._last_diag is not None:
+            pi = self._last_diag.point_influence.cpu().numpy()
+            if pi.shape[0] >= V:
+                return pi[:V]
+        if self._points is None:
+            raise RuntimeError('no point cloud - run shrink_wrap first')
+        ma = self._padded_meshdata()
+        pts = torch.from_numpy(
+            np.ascontiguousarray(self._points, np.float32)).to(self.device)
+        _, fi = self._nearest_for_diagnostics(ma, pts)
+        v_idx, w = _corr.correspondence_weights(ma.positions, ma.faces,
+                                                pts, fi)
+        out = _corr.ah_apply(torch.ones_like(pts), v_idx, w,
+                             ma.positions.shape[0]).cpu().numpy()[:V]
+        return np.sqrt((out * out).sum(1))
+
+    def _nearest_for_diagnostics(self, ma, pts):
+        """Nearest face of every point, by the windowed search (in the
+        points' own order) when brute force would be too large."""
+        centers = ma.positions[ma.faces.long()].mean(1)
+        N = pts.shape[0]
+        if N * ma.faces.shape[0] > 2e9:
+            order = torch.from_numpy(fit_point_order(pts.cpu().numpy())
+                                     ).to(pts.device)
+            d, fi = _corr.nearest_face_windowed(pts[order], centers,
+                                                ma.f_mask)
+            inv = torch.empty_like(order)
+            inv[order] = torch.arange(N, device=pts.device)
+            return d[inv], fi[inv]
+        return _corr.nearest_face_bruteforce(pts, centers, ma.f_mask,
+                                             face_chunk=self.face_chunk)
+
+    # ------------------------------------------------------------------
+    # remesh and boundary cleanup
+
+    def remesh(self, n=5, target_edge_length=-1.0, l=0.5, n_relax=10):
+        veto = (float(self.remesh_collapse_veto_cos)
+                if self.remesh_collapse_veto else None)
+        _remesh.remesh(self, n=n, target_edge_length=target_edge_length,
+                       l=l, n_relax=n_relax, collapse_veto_cos=veto)
+        self._initialize_curvature_vectors()
+
+    def remove_extra_short_edges(self, threshold=0.05, defer_remesh=False):
+        """Remove vertices on pathologically short edges that topology
+        prevented collapsing (pyx:1221-1237), rolled back when the
+        removal would disconnect the surface.  ``defer_remesh`` skips
+        the internal remesh when the scheduled remesh follows."""
+        he = self.halfedges
+        el = he.length
+        if el.size == 0:
+            return
+        short = el < threshold * np.median(el)
+        verts = np.unique(he.vertex[short])
+        if len(verts) == 0:
+            return
+        t1 = time.time()
+        # a hygiene pass must never raise the component count: snapshot
+        # and roll back when it does (or when it empties the mesh)
+        snap_v = self.vertices.copy()
+        snap_f = self.faces.copy()
+        n_before = self.connected_components()[1]
+        self.unsafe_remove_vertices(verts)
+        self.repair()
+        t2 = time.time()
+        if not defer_remesh:
+            self.remesh(n_relax=0)
+        t3 = time.time()
+        self.remove_inner_surfaces()
+        n_after = self.connected_components()[1]
+        if n_after > n_before or (n_after == 0 and n_before > 0):
+            self.set_topology(snap_v, snap_f)
+            self._initialize_curvature_vectors()
+            logger.info('short_edges: rolled back (%d verts - removal '
+                        'would disconnect the surface)', len(verts))
+            return
+        logger.info('short_edges: %d verts - remove+repair %.2fs, remesh '
+                    '%.2fs, inner %.2fs', len(verts), t2 - t1, t3 - t2,
+                    time.time() - t3)
+
+    # ------------------------------------------------------------------
+    # the fit
+
+    def opt_conjugate_gradient(self, points, sigma, max_iter=10,
+                               step_size=1.0, weights=None, **kwargs):
+        """Outer fit loop (pyx:1427-1560): CG blocks of ``rf``
+        iterations on the device, short-edge cleanup and remesh between
+        blocks on a linear edge-length schedule."""
+        r = (self.remesh_frequency != 0) \
+            and (self.remesh_frequency <= max_iter)
+        dr = ((self.delaunay_remesh_frequency != 0)
+              and (self.delaunay_remesh_frequency <= max_iter))
+        if dr:
+            raise NotImplementedError(
+                'hole punching / delaunay remeshing is not ported yet '
+                '(set delaunay_remesh_frequency=0)')
+        if r and self.neck_first_iter > 0:
+            raise NotImplementedError(
+                'neck removal is not ported yet (set neck_first_iter=-1)')
+        if self.shrink_weight > 0:
+            raise NotImplementedError('the shrink prior is not ported yet')
+        if getattr(self, 'device_mesh', None) is not None:
+            raise NotImplementedError('multi-device fits are not ported '
+                                      'yet')
+        if self.capacity_mode != 'final':
+            raise NotImplementedError(
+                f'capacity_mode {self.capacity_mode!r} is not ported yet')
+        rf = self.remesh_frequency if r else max_iter
+
+        if r:
+            initial_length = self._mean_edge_length
+            if kwargs.get('minimum_edge_length', -1) < 0:
+                final_length = float(np.clip(np.min(sigma) / 2.5, 1.0, 50.0))
+            else:
+                final_length = kwargs.get('minimum_edge_length')
+            m = (final_length - initial_length) / (rf * np.ceil(max_iter / rf))
+
+        points = np.ascontiguousarray(points, dtype=np.float32)
+        N = points.shape[0]
+        # sigma -> per-point inverse errors (pyx:1460-1473)
+        if np.isscalar(sigma):
+            sigma_inv = np.full((N, 3), 1.0 / float(sigma), np.float32)
+        else:
+            sigma = np.asarray(sigma)
+            if sigma.ndim == 1 and sigma.shape[0] == N:
+                sigma_inv = (1.0 / sigma)[:, None].repeat(3, 1)
+            elif sigma.ndim == 2 and sigma.shape == (N, 3):
+                sigma_inv = 1.0 / sigma
+            else:
+                raise ValueError(
+                    f"Sigma must be scalar, ({N},) or ({N},3); got "
+                    f"{np.shape(sigma)}")
+            sigma_inv = sigma_inv.astype(np.float32)
+
+        w = sigma_inv if weights is None else \
+            np.asarray(weights, dtype=np.float32).reshape(N, 3)
+        res_weights = (w / w.mean()).astype(np.float32)
+
+        lam0 = float(step_size * self.kc / 2.0)
+        n_iter = int(min(max_iter, self.truncate_at))
+
+        method = self.corr_method
+        if method == 'auto':
+            # windowed (K1 + K2) once brute force would cost more than
+            # 2e9 point-face pairs; which of a kernel or its plain
+            # version runs is decided by each wrapper from the tensors'
+            # device (CUDA -> kernel, CPU -> plain)
+            method = 'windowed' if N * 2 * self.vertices.shape[0] > 2e9 \
+                else 'brute'
+        self._last_corr_method = method
+        # face-side normal equations need strictly positive weights on
+        # every coordinate
+        uniform_weights = bool(np.all(res_weights > 0))
+
+        # capacity policy 'final': one capacity for the whole fit,
+        # predicted from the last executed remesh boundary's clamped
+        # target length (pyx:1541-1546 leaves the schedule unclamped)
+        if r:
+            last_remesh_iter = (n_iter // self.remesh_frequency) \
+                * self.remesh_frequency
+            pred_final_len = max(float(np.clip(
+                initial_length + m * (last_remesh_iter + 1),
+                min(initial_length, final_length),
+                max(initial_length, final_length))), 1e-3)
+            # F = 1.15 area / equilateral-triangle-area(l), with 1.15
+            # headroom on top (the seed is an outer wrap, so its area
+            # bounds the final area)
+            pred_faces = 1.15 * self.area() / (np.sqrt(3.0) / 4.0
+                                               * pred_final_len ** 2)
+            pred_faces = max(pred_faces, self.faces.shape[0])
+            f_cap = meshdata.round_up_bucket(int(1.15 * pred_faces),
+                                             self.pad_quantum)
+            v_cap = meshdata.round_up_bucket(int(1.15 * pred_faces / 2) + 8,
+                                             self.pad_quantum)
+        else:
+            v_cap = f_cap = None
+        self._final_caps_pred = (v_cap, f_cap) if v_cap is not None \
+            else None
+
+        ni_static = min(n_iter, self.remesh_frequency) if r else n_iter
+
+        if method == 'windowed':
+            order = fit_point_order(points)
+            points = np.ascontiguousarray(points[order])
+            sigma_inv = sigma_inv[order]
+            res_weights = res_weights[order]
+            self._points = points       # diagnostics follow this order
+
+        dev = self.device
+        pts_t = torch.from_numpy(points).to(dev)
+        sig_t = torch.from_numpy(np.ascontiguousarray(sigma_inv)).to(dev)
+        w_t = torch.from_numpy(np.ascontiguousarray(res_weights)).to(dev)
+        pmask = torch.ones(N, dtype=torch.bool, device=dev)
+
+        if self.trace is None:
+            self.trace = FitTrace()
+
+        j = 0
+        topo_dirty = True
+        state = None
+        f_dev = None
+        while j < n_iter:
+            n_it = n_iter - j
+            if r:
+                n_it = min(n_it, self.remesh_frequency
+                           - (j % self.remesh_frequency))
+            n_it = int(n_it)
+
+            t0 = time.time()
+            if topo_dirty or state is None:
+                # index locality for the device gathers and scatters
+                self.spatial_sort()
+                if v_cap is not None and (self.vertices.shape[0] > v_cap
+                                          or self.faces.shape[0] > f_cap):
+                    # remesh overshot the prediction; grow the capacity
+                    v_cap = meshdata.round_up_bucket(
+                        int(1.3 * self.vertices.shape[0]),
+                        self.pad_quantum)
+                    f_cap = meshdata.round_up_bucket(
+                        int(1.3 * self.faces.shape[0]), self.pad_quantum)
+                # spatial_sort already Hilbert-ordered the faces
+                ma = meshdata.from_mesh(self, v_cap=v_cap, f_cap=f_cap,
+                                        quantum=self.pad_quantum,
+                                        hilbert_faces=False, device=dev)
+                tables = None
+                if ma.positions.shape[0] > self.ring_gather_min_verts:
+                    tables = meshdata.gather_tables(ma)
+                state = (ma, tables)
+                positions = ma.positions
+            else:
+                ma, tables = state
+                positions = f_dev
+
+            f_new, diag = block_call(
+                positions, ma.faces, ma.f_mask, ma.v_mask, ma.nbr_v,
+                pts_t, sig_t, w_t, pmask, lam0, 0.0,
+                num_iters=ni_static, active_iters=n_it, use_shrink=False,
+                face_chunk=self.face_chunk, corr_method=method,
+                face_nbrs=ma.face_nbrs, tables=tables,
+                face_hcgc=(method == 'windowed' and tables is not None
+                           and ma.positions.shape[0] > meshdata.HCGC_MIN_VP
+                           and uniform_weights))
+            f_dev = f_new
+            topo_dirty = False
+            self._last_diag = diag
+            V = self.vertices.shape[0]
+            new_pos = f_new[:V].cpu().numpy()
+            if not np.isfinite(new_pos).all():
+                # counterpart of the reference's NaN asserts
+                # (mesh_conj_grad.py:548,580,613)
+                raise FloatingPointError(
+                    'non-finite vertex positions after CG block at '
+                    f'iteration {j + n_it}; check sigma/weights inputs')
+            self.set_positions(new_pos)
+            self._initialize_curvature_vectors()
+            j += n_it
+            self.trace.record('cg_block', j, time.time() - t0, self,
+                              diag=diag, n_iters=n_it,
+                              v_cap=int(positions.shape[0]))
+            logger.info('cg_block done j=%d/%d (%.1fs, V=%d, cap=%s)',
+                        j, n_iter, time.time() - t0,
+                        self.vertices.shape[0], v_cap)
+
+            if r and (j % self.remesh_frequency) == 0:
+                t0 = time.time()
+                self.remove_extra_short_edges(
+                    defer_remesh=bool(self.defer_boundary_remesh))
+                self.trace.record('short_edges', j, time.time() - t0, self)
+                t0 = time.time()
+                # clamped to the schedule's endpoints: at j = n_iter
+                # divisible by rf the unclamped line overshoots
+                # final_length (pyx:1541-1546)
+                target_length = float(np.clip(
+                    initial_length + m * (j + 1),
+                    min(initial_length, final_length),
+                    max(initial_length, final_length)))
+                self.remesh(5, target_length, 0.5, n_relax=0)
+                self.trace.record('remesh', j, time.time() - t0, self,
+                                  target_length=target_length)
+                topo_dirty = True
+                logger.info(
+                    'Shrinkwrapping iteration %d of %d - Remesh: target '
+                    'mean length: %.2f resulting: %.2f (V=%d)',
+                    j, n_iter, target_length, self._mean_edge_length,
+                    self.vertices.shape[0])
+
+        logger.info('Shrinkwrapping complete in %d iterations (%s)',
+                    j, self.trace.summary())
+
+    def shrink_wrap(self, points=None, sigma=None,
+                    method='conjugate_gradient', max_iter=None, **kwargs):
+        """Main entry (pyx:1641-1669); caches points/sigma so repeated
+        calls continue the fit."""
+        if method not in DESCENT_METHODS:
+            logger.warning('Unknown descent method %r; using %s', method,
+                           DEFAULT_DESCENT_METHOD)
+            method = DEFAULT_DESCENT_METHOD
+        if max_iter is None:
+            max_iter = self.max_iter
+        if points is None:
+            points = self._points
+        if sigma is None:
+            sigma = self._sigma
+        self._points = np.asarray(points)
+        self._sigma = sigma
+        opts = dict(points=points, sigma=sigma, max_iter=max_iter,
+                    step_size=self.step_size, **kwargs)
+        return getattr(self, 'opt_{}'.format(method))(**opts)

@@ -1,0 +1,373 @@
+"""The shrinkwrap conjugate-gradient block on torch tensors.
+
+Counterpart of the JAX package's ``solver/shrinkwrap.py``: an
+N-direction subspace minimisation of
+
+    || W (points - A f) ||^2 + lam^2 || f - fdef ||^2
+
+where A is the point->face correspondence operator (rebuilt every
+iteration) and fdef the curvature-aware ``_ncc`` prior.  One block runs
+``num_iters`` iterations as a Python loop on the tensors' device; the
+orthogonality statistic of the search directions (the reference's early
+stop, conj_grad.py:151-162) is read back once per iteration and freezes
+the block when it triggers.
+
+With ``corr_method='windowed'`` the nearest-face search runs through K1
+(``ops.cuda_window``) and the A^T accumulation through K2
+(``ops.cuda_scatter``).  With ``tables`` (``ops.meshdata.gather_tables``)
+the face-corner, one-ring, fold and search-direction gathers run through
+K3 (``ops.cuda_gather``).  On CPU tensors each kernel wrapper runs its
+plain PyTorch version.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from ..ops import correspondence as corr
+from ..ops import normals as _normals
+from ..ops.cuda_gather import row_gather
+from ..ops.cuda_scatter import windowed_ah, windowed_ahw2
+
+
+class SolverDiagnostics(NamedTuple):
+    """Per-iteration traces (length num_iters; NaN / 0 once frozen) and
+    the last live iteration's state."""
+    tests: torch.Tensor            # orthogonality test statistic
+    ress: torch.Tensor             # ||res||
+    n_done: torch.Tensor           # number of iterations applied
+    S: torch.Tensor                # (Vp, 3, s_size) search directions
+    res: torch.Tensor              # (N, 3) weighted residuals
+    point_influence: torch.Tensor  # (Vp,) |A^T 1| per vertex
+    d: torch.Tensor                # (N,) point->face distances
+    K: Optional[torch.Tensor] = None
+
+
+def _ncc_finish(f, vnormals, point_influence, sum_pos, ms, a_num):
+    ms_safe = torch.clamp(ms, min=1.0)
+    vc = sum_pos / ms_safe[:, None]
+    alpha = a_num / ms_safe
+    alpha = alpha * torch.clamp(point_influence ** 2, max=1.0)
+    out = vc + alpha[:, None] * vnormals
+    return torch.where((ms == 0)[:, None], f, out)
+
+
+def compute_ncc(f, nbr_v, vnormals, point_influence, v_mask, kmajor=None):
+    """The curvature-aware smoothing prior ``_ncc``
+    (mesh_conj_grad.py:770-820): neighbour centroid plus an alpha *
+    normal offset, alpha from neighbour-normal geometry, gated by the
+    squared point influence.
+
+    ``kmajor`` = (ncc_idx, ncc_care, ncc_ov) from ``GatherTables``
+    selects the k-major form: one K3 gather of [position, normal] rows
+    over the (NCC_K, Vp) neighbour stream, reduced over k with the
+    vertex axis contiguous, plus exact overflow terms for neighbour
+    slots >= NCC_K.  Without it the plain (Vp, K, 6) form runs."""
+    Vp = f.shape[0]
+    vm = v_mask.bool()
+    fn = torch.cat([f, vnormals], dim=1)                      # (Vp, 6)
+    if kmajor is not None:
+        idx, care, ov = kmajor
+        Kn = care.shape[0]
+        g = row_gather(fn, idx).reshape(Kn, Vp, 6)
+        mf = (care & vm[None, :]).to(f.dtype)                 # (Kn, Vp)
+        pos = g[..., 0:3] * mf[..., None]
+        nrm = g[..., 3:6]
+        ms = mf.sum(0)
+        sum_pos = pos.sum(0)                                  # (Vp, 3)
+        if ov is not None:
+            sv, su = ov
+            ovf = vm[sv].to(f.dtype)
+            sum_pos = sum_pos.index_add(0, sv, f[su] * ovf[:, None])
+            ms = ms.index_add(0, sv, ovf)
+        vc = sum_pos / torch.clamp(ms, min=1.0)[:, None]
+        t_pos = (pos * nrm).sum(-1)                           # (Kn, Vp)
+        t_vc = (vc[None] * nrm).sum(-1)
+        ndn = (nrm * vnormals[None]).sum(-1)
+        denom = torch.sqrt(2.0 * (torch.clamp(ndn, min=0.0) + 1.0))
+        a_num = ((t_pos - t_vc * mf) / denom * mf).sum(0)     # (Vp,)
+        if ov is not None:
+            n_u = vnormals[su]
+            ndn_o = (n_u * vnormals[sv]).sum(-1)
+            den_o = torch.sqrt(2.0 * (torch.clamp(ndn_o, min=0.0) + 1.0))
+            t_o = ((f[su] - vc[sv]) * n_u).sum(-1) / den_o * ovf
+            a_num = a_num.index_add(0, sv, t_o)
+        return _ncc_finish(f, vnormals, point_influence, sum_pos, ms,
+                           a_num)
+    nmask = (nbr_v >= 0) & vm[:, None]
+    nm = nmask.to(f.dtype)
+    vg = fn[nbr_v.long().clamp(0, Vp - 1)]                    # (Vp, K, 6)
+    vpos = vg[..., 0:3]
+    n_n = vg[..., 3:6]
+    ms = nm.sum(-1)
+    sum_pos = (vpos * nm[..., None]).sum(1)
+    vc = sum_pos / torch.clamp(ms, min=1.0)[:, None]
+    c_n = (vpos - vc[:, None, :]) * nm[..., None]
+    n_dot_n = (n_n * vnormals[:, None, :]).sum(-1)
+    alpha_j = ((c_n * n_n).sum(-1)
+               / torch.sqrt(2.0 * (torch.clamp(n_dot_n, min=0.0) + 1.0)))
+    a_num = (alpha_j * nm).sum(-1)
+    return _ncc_finish(f, vnormals, point_influence, sum_pos, ms, a_num)
+
+
+def _fold(fused, faces, Vp, tables):
+    """faces -> vertices fold of the (3 Fp, C) corner rows: with
+    ``tables``, a K3 gather of each vertex's incident rows plus a
+    masked sum (and the overflow rows added exactly); else
+    ``index_add_``."""
+    if tables is None:
+        out = torch.zeros((Vp, fused.shape[1]), dtype=fused.dtype,
+                          device=fused.device)
+        return out.index_add_(0, faces.reshape(-1).long(), fused)
+    KI = tables.fold_care.shape[1]
+    vg = row_gather(fused, tables.fold_idx).reshape(Vp, KI, -1)
+    out = (vg * tables.fold_care[..., None].to(fused.dtype)).sum(1)
+    if tables.fold_ov is not None:
+        ov_rows, ov_verts = tables.fold_ov
+        out = out.index_add(0, ov_verts, fused[ov_rows])
+    return out
+
+
+def cg_block(positions, faces, f_mask, v_mask, nbr_v,
+             points, sigma_inv, weights, point_mask,
+             lam0, shrink_lam=0.0, num_iters=5,
+             use_shrink=False, face_chunk=2048, stop_eps=1e-6,
+             corr_method='brute', face_nbrs=None, polish_iters=0,
+             tables=None, face_hcgc=False, active_iters=None,
+             nbr_f=None, want_curv_K=False, spmd_mesh=None):
+    """Run up to ``num_iters`` CG iterations; returns (new_positions,
+    SolverDiagnostics).
+
+    positions : (Vp, 3) f32 padded vertex positions
+    faces, f_mask, v_mask, nbr_v : padded MeshArrays fields
+    points : (N, 3) f32 localizations (``fit_point_order``-sorted for
+        the windowed search)
+    sigma_inv : (N, 3) f32 inverse localization errors
+    weights : (N, 3) f32 residual weights; zero rows drop out of the
+        subspace solve
+    point_mask : (N,) bool padding mask of the point cloud
+    lam0 : regularization weight (= step_size * kc / 2)
+    corr_method : 'brute' (exact) or 'windowed' (K1 + K2)
+    tables : optional ``GatherTables`` routing the gathers through K3
+    face_hcgc : contract the subspace normal equations face-side (needs
+        'windowed' and strictly positive weights on every coordinate)
+    active_iters : iterations beyond it are skipped (frozen)
+    """
+    if use_shrink or want_curv_K or spmd_mesh is not None:
+        raise NotImplementedError(
+            'use_shrink, want_curv_K and spmd_mesh are not ported yet')
+    if corr_method not in ('brute', 'windowed'):
+        raise ValueError(f'unknown corr_method {corr_method!r}')
+    if face_hcgc and corr_method != 'windowed':
+        raise ValueError("face_hcgc requires corr_method='windowed'")
+    dev = positions.device
+    f32 = torch.float32
+    Vp = positions.shape[0]
+    N = points.shape[0]
+    Fp = faces.shape[0]
+    n_dirs0 = 2                     # S0 and the ncc prior direction
+    s_size = n_dirs0 + 1            # + the classic-CG memory direction
+    faces_l = faces.long()
+
+    pmask3 = point_mask.to(f32)[:, None]
+    el_mask = ((weights > 0) & point_mask.bool()[:, None]).to(f32)
+    vmask3 = v_mask.to(f32)[:, None]
+    lam2 = float(np.float32(lam0) ** 2)
+
+    corr_starts = corr_prep = None
+    if corr_method == 'windowed':
+        # anchors and point blocks once per CG block: points are fixed
+        # and faces drift little within a block (the subsample
+        # fallback still re-checks every iteration)
+        centers0 = positions[faces_l].mean(1)
+        corr_starts = corr.windowed_anchor_starts(points, centers0, f_mask)
+        corr_prep = corr.windowed_points_prep(points)
+    kmajor = None if tables is None else (
+        tables.ncc_idx, tables.ncc_care, tables.ncc_ov)
+
+    n_act = num_iters if active_iters is None else int(active_iters)
+    f = positions
+    S_last = torch.zeros_like(positions)
+    tests_hist = [float('inf')] * 3
+    halted = False
+    tests, ress, done = [], [], 0
+    diag_state = (torch.zeros((Vp, 3, s_size), dtype=f32, device=dev),
+                  torch.zeros((N, 3), dtype=f32, device=dev),
+                  torch.zeros((Vp,), dtype=f32, device=dev),
+                  torch.zeros((N,), dtype=f32, device=dev))
+
+    for it in range(num_iters):
+        if halted or it >= n_act:
+            tests.append(float('nan'))
+            ress.append(0.0)
+            continue
+
+        if tables is not None:
+            tri = row_gather(f, tables.tri_idx).reshape(Fp, 3, 3)
+        else:
+            tri = f[faces_l]
+        centers = tri.mean(1)
+        vn_corners = _normals.vertex_normal_corners(f, faces, f_mask,
+                                                    tri=tri)
+
+        # --- correspondence
+        if corr_method == 'windowed':
+            dmean, fi, meta = corr.nearest_face_windowed(
+                points, centers, f_mask, return_meta=True,
+                starts=corr_starts, prep=corr_prep)
+        else:
+            dmean, fi = corr.nearest_face_bruteforce(
+                points, centers, f_mask, face_chunk=face_chunk)
+        if corr_method != 'brute' and face_nbrs is not None \
+                and polish_iters > 0:
+            dmean, fi = corr.refine_correspondence(
+                points, centers, face_nbrs, fi, n_iter=polish_iters)
+        fi_l = fi.long()
+        fv9 = tri.reshape(Fp, 9)[fi_l]                       # (N, 9)
+        fvj = [fv9[:, 3 * j:3 * j + 3] for j in range(3)]
+        dvert = torch.stack(
+            [torch.sqrt(((fj - points) ** 2).sum(-1)) for fj in fvj],
+            dim=-1)
+        w = 1.0 / torch.clamp(dvert, min=1e-6)
+        w = w / w.sum(-1, keepdim=True)
+        w = w * pmask3
+        Af = fvj[0] * w[:, 0:1] + fvj[1] * w[:, 1:2] + fvj[2] * w[:, 2:3]
+
+        # --- weighted residuals (mesh_conj_grad.py:222-248)
+        res = weights * (points - Af)
+        w_dist = 1.0 / (dmean[:, None] * sigma_inv / 2.0 + 1.0)
+        res = res * w_dist * pmask3
+
+        # --- A^T of [res, 1] per corner: (Fp, 12), col 4j+c
+        W2 = None
+        if corr_method == 'windowed':
+            if face_hcgc:
+                face_acc, W2 = windowed_ahw2(w, res, fi, meta.js,
+                                             meta.starts, meta.sub_ids,
+                                             num_segments=Fp)
+            else:
+                face_acc = windowed_ah(w, res, fi, meta.js, meta.starts,
+                                       meta.sub_ids, num_segments=Fp)
+        else:
+            ah_in = torch.cat([res, pmask3], dim=1)          # (N, 4)
+            per_corner = (w[..., None] * ah_in[:, None, :]).reshape(N, 12)
+            face_acc = torch.zeros((Fp, 12), dtype=f32, device=dev)
+            face_acc.index_add_(0, fi_l, per_corner)
+        fused = torch.cat([vn_corners.reshape(Fp * 3, 3),
+                           face_acc.reshape(Fp * 3, 4)], dim=1)  # (3Fp, 7)
+        out7 = _fold(fused, faces, Vp, tables)
+        vn = _normals.normalize_vertex_normals(out7[:, :3])
+        S0_raw = out7[:, 3:6]
+        point_influence = (3.0 ** 0.5) * torch.abs(out7[:, 6])
+        ncc = compute_ncc(f, nbr_v, vn, point_influence, v_mask,
+                          kmajor=kmajor)
+
+        S0 = S0_raw * vmask3
+        pref0 = (f - ncc) * vmask3
+        S = torch.stack([S0, -pref0, S_last], dim=-1)        # (Vp, 3, s)
+        n_active = s_size if it > 0 else n_dirs0
+
+        # --- orthogonality statistic over ordered pairs (i, j != i,
+        # j >= 1) of the first n_dirs0 directions (conj_grad.py:151-162)
+        def cos_abs(i, j):
+            num = (S[..., i] * S[..., j]).sum()
+            den = torch.linalg.norm(S[..., i]) * torch.linalg.norm(S[..., j])
+            return torch.abs(num) / torch.clamp(den, min=1e-30)
+
+        pairs = [(i, j) for i in range(n_dirs0) for j in range(1, n_dirs0)
+                 if i != j]
+        test = 1.0
+        for (i, j) in pairs:
+            test = test - cos_abs(i, j) / len(pairs)
+
+        # --- subspace solve (conj_grad.py:183-229)
+        ks = 3 * s_size
+        if tables is not None:
+            S_tri = row_gather(S.reshape(Vp, ks),
+                               tables.tri_idx).reshape(Fp, 3 * ks)
+        else:
+            S_tri = S.reshape(Vp, ks)[faces_l.reshape(-1)].reshape(
+                Fp, 3 * ks)
+        if W2 is not None:
+            # face-side normal equations: with E = A^T cols and
+            # W2[f, j, j'] = sum_{n: fi = f} w_nj w_nj', the quadratic
+            # forms contract over faces (valid because res is zero
+            # exactly where el_mask is, which face_hcgc's caller checks)
+            Sc = [S_tri[:, ks * a:ks * (a + 1)].reshape(Fp, 3, s_size)
+                  for a in range(3)]
+            Gc = sum(torch.einsum('fik,fi->k', Sc[j],
+                                  face_acc[:, 4 * j:4 * j + 3])
+                     for j in range(3))
+            pair_col = {(0, 0): 0, (1, 1): 1, (2, 2): 2,
+                        (0, 1): 3, (0, 2): 4, (1, 2): 5}
+            Hc = torch.zeros((s_size, s_size), dtype=f32, device=dev)
+            for (a, b), col in pair_col.items():
+                Hab = torch.einsum('fik,fil->kl',
+                                   Sc[a] * W2[:, col, None, None], Sc[b])
+                Hc = Hc + (Hab if a == b else Hab + Hab.T)
+        else:
+            ASr = S_tri[fi_l]                                # (N, 9s)
+            AS = (ASr[:, 0:ks] * w[:, 0:1] + ASr[:, ks:2 * ks] * w[:, 1:2]
+                  + ASr[:, 2 * ks:] * w[:, 2:3]).reshape(N, 3, s_size)
+            ASm = AS * el_mask[..., None]
+            res_m = res * el_mask
+            Hc = torch.einsum('nik,nil->kl', ASm, ASm)
+            Gc = torch.einsum('nik,ni->k', ASm, res_m)
+
+        Sv = S * vmask3[..., None]
+        H = Hc + lam2 * torch.einsum('vik,vil->kl', Sv, Sv)
+        G = Gc - lam2 * torch.einsum('vik,vi->k', Sv, pref0)
+
+        act = (torch.arange(s_size, device=dev) < n_active).to(f32)
+        H = H * act[None, :] * act[:, None] + torch.diag(1.0 - act)
+        H = H + 1e-20 * torch.eye(s_size, dtype=f32, device=dev)
+        G = G * act
+        c = torch.linalg.solve(H, G)
+        fnew = f + torch.einsum('vik,k->vi', S, c) * vmask3
+
+        # --- stop condition (mesh_conj_grad.py:1009-1016): decided by
+        # the statistics of earlier iterations; the stopping iteration
+        # still reports its residual but applies no step
+        a_, b_, c3 = tests_hist
+        halted = (c3 < b_) and (b_ < a_) and (a_ < stop_eps)
+        test_v, res_v = torch.stack(
+            [torch.as_tensor(test, dtype=f32, device=dev),
+             torch.linalg.norm(res)]).tolist()
+        ress.append(res_v)
+        if halted:
+            tests.append(float('nan'))
+        else:
+            tests.append(test_v)
+            done += 1
+            S_last = fnew - f
+            f = fnew
+            tests_hist = [tests_hist[1], tests_hist[2], test_v]
+        diag_state = (S, res, point_influence, dmean)
+
+    S_f, res_f, pi_f, d_f = diag_state
+    diags = SolverDiagnostics(
+        tests=torch.tensor(tests, dtype=f32),
+        ress=torch.tensor(ress, dtype=f32),
+        n_done=torch.tensor(done), S=S_f, res=res_f,
+        point_influence=pi_f, d=d_f, K=None)
+    return f, diags
+
+
+def block_call(positions, faces, f_mask, v_mask, nbr_v,
+               points, sigma_inv, weights, point_mask,
+               lam0, shrink_lam, *, num_iters, active_iters,
+               use_shrink, face_chunk, corr_method, face_nbrs,
+               tables=None, nbr_f=None, want_curv_K=False,
+               face_hcgc=False, spmd_mesh=None):
+    """The one call shape of ``cg_block`` the fit loop uses."""
+    return cg_block(
+        positions, faces, f_mask, v_mask, nbr_v,
+        points, sigma_inv, weights, point_mask,
+        lam0, shrink_lam, num_iters=num_iters, active_iters=active_iters,
+        use_shrink=use_shrink, face_chunk=face_chunk,
+        corr_method=corr_method, face_nbrs=face_nbrs, tables=tables,
+        nbr_f=nbr_f, want_curv_K=want_curv_K, face_hcgc=face_hcgc,
+        spmd_mesh=spmd_mesh)

@@ -1,0 +1,6 @@
+from .math import (
+    fast_3x3_cross,
+    dot2,
+    loc_error,
+)
+from . import tracing

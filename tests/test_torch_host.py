@@ -1,0 +1,286 @@
+"""PyTorch port, host layer: bit-identical to the JAX package, and the
+port's import and device rules.
+
+The host mesh code (spatial sort, neighbour tables, remesh, marching
+seed, Hilbert codes) is numpy + the native engine in both packages; the
+port keeps its own copy, so the same numpy inputs must give the same
+bits.
+"""
+
+import inspect
+import os
+import re
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from ch_shrinkwrap_tpu.mesh.core import TriangleMesh as JMesh
+from ch_shrinkwrap_tpu.mesh.primitives import icosphere as jico
+from ch_shrinkwrap_tpu.mesh.remesh import remesh as jremesh
+from ch_shrinkwrap_tpu.mesh.marching import wrap_start as jwrap
+from ch_shrinkwrap_tpu.ops import meshdata as jmd
+from ch_shrinkwrap_tpu.ops import correspondence as jcorr
+
+from ch_shrinkwrap_torch.mesh.core import TriangleMesh as TMesh
+from ch_shrinkwrap_torch.mesh.primitives import icosphere as tico
+from ch_shrinkwrap_torch.mesh.remesh import remesh as tremesh
+from ch_shrinkwrap_torch.mesh.marching import wrap_start as twrap
+from ch_shrinkwrap_torch.ops import meshdata as tmd
+from ch_shrinkwrap_torch.ops import ordering as tord
+
+torch.set_num_threads(1)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def noisy_sphere(sub, seed=0, radius=50.0):
+    v, f = jico(sub, radius=radius)
+    tv, tf = tico(sub, radius=radius)
+    np.testing.assert_array_equal(v, tv)
+    np.testing.assert_array_equal(f, tf)
+    rng = np.random.default_rng(seed)
+    v = (v + rng.normal(scale=0.3, size=v.shape)).astype(np.float32)
+    return v, f
+
+
+def sphere_points(n, radius=50.0, sigma=3.0, seed=0):
+    rng = np.random.default_rng(seed)
+    d = rng.normal(size=(n, 3))
+    d /= np.linalg.norm(d, axis=1)[:, None]
+    return (d * radius + rng.normal(scale=sigma, size=(n, 3))
+            ).astype(np.float32)
+
+
+@pytest.mark.parametrize('sub', [3, 5])
+def test_spatial_sort_bit_identical(sub):
+    v, f = noisy_sphere(sub, seed=sub)
+    a, b = JMesh(v, f), TMesh(v, f)
+    a.spatial_sort()
+    b.spatial_sort()
+    np.testing.assert_array_equal(a.vertices, b.vertices)
+    np.testing.assert_array_equal(a.faces, b.faces)
+
+
+@pytest.mark.parametrize('hilbert_faces', [True, False])
+def test_from_mesh_tables_bit_identical(hilbert_faces):
+    """Capacities, padding and neighbour tables row for row."""
+    v, f = noisy_sphere(4, seed=1)
+    ja = jmd.from_mesh(JMesh(v, f), quantum=256,
+                       hilbert_faces=hilbert_faces)
+    ta = tmd.from_mesh(TMesh(v, f), quantum=256,
+                       hilbert_faces=hilbert_faces, device='cpu')
+    for name in ('positions', 'v_mask', 'faces', 'f_mask', 'nbr_v',
+                 'nbr_f', 'face_nbrs'):
+        np.testing.assert_array_equal(np.asarray(getattr(ja, name)),
+                                      getattr(ta, name).numpy(),
+                                      err_msg=name)
+    assert ta.positions.dtype == torch.float32
+    assert ta.faces.dtype == torch.int32
+
+
+def test_numpy_neighbor_tables_match_native():
+    v, f = noisy_sphere(3, seed=2)
+    ta = tmd.from_mesh(TMesh(v, f), quantum=256, hilbert_faces=False,
+                       device='cpu')
+    nv, nf = tmd.neighbor_tables(f, v.shape[0])
+    np.testing.assert_array_equal(ta.nbr_v.numpy()[:v.shape[0]], nv)
+    np.testing.assert_array_equal(ta.nbr_f.numpy()[:v.shape[0]], nf)
+    np.testing.assert_array_equal(ta.face_nbrs.numpy()[:f.shape[0]],
+                                  tmd.face_adjacency(f))
+
+
+@pytest.mark.parametrize('target_scale,n_relax', [(0.6, 0), (1.3, 2)])
+def test_remesh_bit_identical(target_scale, n_relax):
+    v, f = noisy_sphere(4, seed=3)
+    a, b = JMesh(v, f), TMesh(v, f)
+    target = target_scale * a._mean_edge_length
+    jremesh(a, n=3, target_edge_length=target, n_relax=n_relax)
+    tremesh(b, n=3, target_edge_length=target, n_relax=n_relax)
+    np.testing.assert_array_equal(a.vertices, b.vertices)
+    np.testing.assert_array_equal(a.faces, b.faces)
+
+
+def test_wrap_start_bit_identical():
+    pts = sphere_points(20_000)
+    a = jwrap(pts, offset=10.0, grid_n=24)
+    b = twrap(pts, offset=10.0, grid_n=24)
+    assert a.vertices.shape[0] > 100
+    np.testing.assert_array_equal(a.vertices, b.vertices)
+    np.testing.assert_array_equal(a.faces, b.faces)
+
+
+@pytest.mark.parametrize('n', [1000, 8192])
+def test_hilbert_codes_and_orders_bit_identical(n):
+    """Below 4096 points the numpy Skilling loops run, above it the
+    native codes; both must match the JAX package's."""
+    rng = np.random.default_rng(n)
+    pts = np.vstack([sphere_points(n, seed=n),
+                     rng.uniform(-150, 150, (n // 20, 3))]).astype(
+        np.float32)
+    np.testing.assert_array_equal(jcorr.hilbert_codes_for(pts),
+                                  tord.hilbert_codes_for(pts))
+    np.testing.assert_array_equal(jcorr.hilbert_order(pts),
+                                  tord.hilbert_order(pts))
+    np.testing.assert_array_equal(jcorr.morton_order(pts),
+                                  tord.morton_order(pts))
+    np.testing.assert_array_equal(jcorr.fit_point_order(pts),
+                                  tord.fit_point_order(pts))
+
+
+@pytest.mark.parametrize('n_total', [300, 20_480, 263_168])
+def test_subsample_ids_bit_identical(n_total):
+    np.testing.assert_array_equal(
+        np.asarray(jcorr._subsample_ids(n_total, 1024)),
+        tord._subsample_ids(n_total, 1024))
+
+
+def test_incidence_table_bit_identical():
+    v, f = noisy_sphere(4, seed=4)
+    ja = jmd.from_mesh(JMesh(v, f), quantum=256)
+    faces = np.asarray(ja.faces)
+    fmask = np.asarray(ja.f_mask)
+    Vp = ja.positions.shape[0]
+    for K in (8, 5):
+        for x, y in zip(jmd.incidence_table(faces, fmask, Vp, K=K),
+                        tmd.incidence_table(faces, fmask, Vp, K=K)):
+            np.testing.assert_array_equal(x, y)
+
+
+_PORT_MODULES = [
+    'ch_shrinkwrap_torch', 'ch_shrinkwrap_torch.convert',
+    'ch_shrinkwrap_torch.mesh', 'ch_shrinkwrap_torch.mesh.marching',
+    'ch_shrinkwrap_torch.mesh.remesh', 'ch_shrinkwrap_torch.native',
+    'ch_shrinkwrap_torch.ops.ordering', 'ch_shrinkwrap_torch.ops._build',
+    'ch_shrinkwrap_torch.ops.normals', 'ch_shrinkwrap_torch.ops.curvature',
+    'ch_shrinkwrap_torch.ops.meshdata',
+    'ch_shrinkwrap_torch.ops.correspondence',
+    'ch_shrinkwrap_torch.ops.cuda_window',
+    'ch_shrinkwrap_torch.ops.cuda_scatter',
+    'ch_shrinkwrap_torch.ops.cuda_gather',
+    'ch_shrinkwrap_torch.solver.shrinkwrap',
+    'ch_shrinkwrap_torch.models', 'ch_shrinkwrap_torch.utils',
+]
+
+
+def test_port_imports_without_jax():
+    """The port and chip_smoke's helpers import with jax unimportable,
+    and importing them starts no build."""
+    code = (
+        "import sys, importlib\n"
+        "sys.modules['jax'] = None\n"
+        f"for m in {_PORT_MODULES!r}:\n"
+        "    importlib.import_module(m)\n"
+        "import chip_smoke\n"
+        "p, s = chip_smoke.sphere_cloud(64)\n"
+        "assert p.shape == (64, 3)\n"
+        "assert chip_smoke.bound_ms(3.35e9, 0.0) == (1.0, 'bytes')\n"
+        "from ch_shrinkwrap_torch.ops import _build\n"
+        "assert _build._lib is None\n"
+        "assert not any(k == 'jax' or k.startswith('jax.') "
+        "or k.startswith('ch_shrinkwrap_tpu') for k in sys.modules "
+        "if sys.modules[k] is not None)\n"
+        "print('ok')\n")
+    r = subprocess.run([sys.executable, '-c', code], cwd=REPO,
+                       capture_output=True, text=True, timeout=120,
+                       env={**os.environ, 'PYTHONPATH': REPO})
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip().endswith('ok')
+
+
+def test_no_jax_in_port_sources():
+    pat = re.compile(r'import jax|from jax|ch_shrinkwrap_tpu')
+    files = [os.path.join(REPO, 'chip_smoke.py')]
+    for root, _, names in os.walk(os.path.join(REPO,
+                                               'ch_shrinkwrap_torch')):
+        files += [os.path.join(root, n) for n in names
+                  if n.endswith(('.py', '.cu', '.cpp', '.cuh', '.h'))]
+    assert len(files) > 20
+    hits = []
+    for path in files:
+        with open(path, encoding='utf-8') as fh:
+            for i, line in enumerate(fh, 1):
+                if pat.search(line):
+                    hits.append(f'{path}:{i}: {line.strip()}')
+    assert not hits, '\n'.join(hits)
+
+
+def test_cuda_sources_are_plain_c():
+    """Kernels build by nvcc into a ctypes library: no PyTorch header,
+    no torch.utils.cpp_extension anywhere in the port."""
+    csrc = os.path.join(REPO, 'ch_shrinkwrap_torch', 'csrc')
+    from ch_shrinkwrap_torch.ops import _build
+    assert sorted(os.listdir(csrc)) == sorted(_build.SOURCES)
+    for name in _build.SOURCES:
+        with open(os.path.join(csrc, name)) as fh:
+            src = fh.read()
+        includes = re.findall(r'#include\s*[<"]([^>"]+)', src)
+        assert includes and not any(
+            'torch' in i or 'ATen' in i or 'c10' in i or 'pybind' in i
+            for i in includes), includes
+        assert 'extern "C"' in src
+    for root, _, names in os.walk(os.path.join(REPO,
+                                               'ch_shrinkwrap_torch')):
+        for n in names:
+            if n.endswith('.py'):
+                with open(os.path.join(root, n)) as fh:
+                    assert not re.search(
+                        r'^\s*(from|import)\s+\S*cpp_extension'
+                        r'|cpp_extension\.load', fh.read(), re.M), n
+    assert 'sm_90a' in ' '.join(_build.FLAGS)
+
+
+def test_entry_points_default_to_cuda():
+    from ch_shrinkwrap_torch.models import MembraneMesh
+    from ch_shrinkwrap_torch.convert import state_from_numpy
+    v, f = tico(2, radius=10.0)
+    assert MembraneMesh(v, f).device == torch.device('cuda')
+    assert MembraneMesh(v, f, device='cpu').device == torch.device('cpu')
+    for fn in (tmd.from_mesh, state_from_numpy):
+        assert inspect.signature(fn).parameters['device'].default == 'cuda'
+
+
+def test_kernel_wrappers_never_fall_back_off_cpu():
+    """Only CPU tensors take the plain versions: a tensor on any other
+    device goes to the kernel path, which refuses non-CUDA inputs
+    instead of computing elsewhere."""
+    from ch_shrinkwrap_torch.ops import cuda_window, cuda_scatter
+    from ch_shrinkwrap_torch.ops import cuda_gather
+    meta = torch.device('meta')
+    with pytest.raises(ValueError, match='CUDA'):
+        cuda_gather.row_gather(torch.empty((10, 3), device=meta),
+                               torch.zeros(5, dtype=torch.int32,
+                                           device=meta))
+    nb, B, Fp = 2, 256, 4096
+    with pytest.raises(ValueError, match='CUDA'):
+        cuda_window.window_min(
+            torch.empty((nb, 3, B), device=meta),
+            torch.zeros((nb, 3), dtype=torch.int32, device=meta),
+            torch.empty((3, Fp), device=meta), torch.empty(Fp, device=meta),
+            torch.zeros(1024, dtype=torch.int32, device=meta))
+    N = nb * B
+    with pytest.raises(ValueError, match='CUDA'):
+        cuda_scatter.windowed_ah(
+            torch.empty((N, 3), device=meta), torch.empty((N, 3),
+                                                          device=meta),
+            torch.zeros(N, dtype=torch.int32, device=meta),
+            torch.zeros(N, dtype=torch.int32, device=meta),
+            torch.zeros((nb, 3), dtype=torch.int32, device=meta),
+            torch.zeros(1024, dtype=torch.int32, device=meta),
+            num_segments=Fp)
+    assert cuda_gather.row_gather.launches == 0
+    assert cuda_window.window_min.launches == 0
+    assert cuda_scatter.windowed_scatter.launches == 0
+
+
+def test_not_ported_options_raise():
+    from ch_shrinkwrap_torch.models import MembraneMesh
+    v, f = tico(2, radius=60.0)
+    pts = sphere_points(500)
+    for kw in ({'neck_first_iter': 3, 'delaunay_remesh_frequency': 0},
+               {'delaunay_remesh_frequency': 4}):
+        m = MembraneMesh(v, f, remesh_frequency=5, device='cpu', **kw)
+        with pytest.raises(NotImplementedError):
+            m.shrink_wrap(pts, 3.0, max_iter=10)
