@@ -117,7 +117,7 @@ def build():
 
 
 def _declare(L):
-    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
     L.csw_window_min.argtypes = [
         vp, vp, vp, vp, vp,                 # pts, starts, cand4, sub4, sub_ids
         i32, i32, i32, i32, i32,            # nb, B, A, W, nsub
@@ -126,15 +126,20 @@ def _declare(L):
     L.csw_window_min.restype = i32
     L.csw_windowed_scatter.argtypes = [
         vp, vp, vp, vp, vp, vp, vp,         # w, res, vals, fid, js, starts, sub_ids
-        i64, i32, i32, i32, i32,            # N, B, A, W, nsub
-        i64, i32, i32, i32,                 # num_segments, mode, C, discard_sub
+        i32, i32, i32, i32, i32, i32,       # N, B, A, W, smax, nsub
+        i32, i32, i32, i32, i32,            # num_segments, mode, C, Cp,
+                                            # discard_sub
         vp,                                 # out
         vp]                                 # stream
     L.csw_windowed_scatter.restype = i32
     L.csw_row_gather.argtypes = [
-        vp, i64, i32, vp, i64, vp,          # src, V, C, idx, R, out
+        vp, i32, i32, vp, i32, vp,          # src, V, C, idx, R, out
         vp]                                 # stream
     L.csw_row_gather.restype = i32
+    L.csw_row_group_sum.argtypes = [
+        vp, i32, i32, vp, vp, i32, i32, vp,  # src, V, C, idx, care, K, R, out
+        vp]                                  # stream
+    L.csw_row_group_sum.restype = i32
     L.csw_error_string.argtypes = [i32]
     L.csw_error_string.restype = ctypes.c_char_p
 

@@ -32,8 +32,21 @@ from .cuda_window import CORR_A, CORR_W
 BIG = 3.4e38
 
 
+def sumsq3(v):
+    """|v|^2 of (..., 3) f32 rows, rounded as the JAX package's jitted
+    ``(v * v).sum(-1)`` rounds it: XLA forms the FMA chain
+    ``fma(z, z, fma(y, y, x * x))``.  Each FMA is emulated in float64,
+    where the product of two f32 values is exact, then rounded to f32,
+    so the result does not depend on how torch orders or fuses a sum
+    on either device."""
+    x, y, z = v.unbind(-1)
+    s = x * x
+    s = (y.double() * y.double() + s.double()).float()
+    return (z.double() * z.double() + s.double()).float()
+
+
 def _masked_c2(centers, f_mask):
-    return torch.where(f_mask.bool(), (centers * centers).sum(-1),
+    return torch.where(f_mask.bool(), sumsq3(centers),
                        torch.full_like(centers[:, 0], BIG))
 
 
@@ -107,12 +120,11 @@ def windowed_anchor_starts(points, centers, f_mask, block_size=256,
     else:
         bcent = (s[:, h - 1] + s[:, h]) * 0.5              # (nb, 3)
 
-    sub_ids = torch.from_numpy(_subsample_ids(Fp, n_subsample)).to(dev)
-    sub_l = sub_ids.long()
+    sub_l = subsample_ids(Fp, n_subsample, dev).long()
     sub_c = centers[sub_l]
     sub_c2 = _masked_c2(sub_c, f_mask[sub_l])
     n_pool = 12
-    d2b = ((bcent * bcent).sum(-1)[:, None] + sub_c2[None, :]
+    d2b = (sumsq3(bcent)[:, None] + sub_c2[None, :]
            - 2.0 * (bcent @ sub_c.T))
     top = torch.topk(-d2b, min(n_pool, sub_l.numel()), dim=1).indices
     pool = sub_l[top]                                      # (nb, P)
@@ -148,16 +160,27 @@ class WindowedPointsPrep(NamedTuple):
 def windowed_points_prep(points, block_size=256):
     blocks = _padded_blocks(points, block_size)
     return WindowedPointsPrep(blocks_t=blocks.transpose(1, 2).contiguous(),
-                              p2=(blocks * blocks).sum(-1))
+                              p2=sumsq3(blocks))
+
+
+def subsample_ids(n_faces, n_subsample=1024, device=None):
+    """(nsub,) i32 ids of the hashed face subsample the windowed search
+    and the K2 routing share."""
+    return torch.from_numpy(_subsample_ids(n_faces, n_subsample)).to(
+        device).int()
 
 
 def nearest_face_windowed(points, centers, f_mask, block_size=256,
                           window=None, n_subsample=1024, return_meta=False,
-                          n_anchors=None, starts=None, prep=None):
+                          n_anchors=None, starts=None, prep=None,
+                          sub_ids=None):
     """Nearest face via contiguous Hilbert windows plus the subsample
     fallback, through the K1 kernel.  Requires points sorted by
     ``fit_point_order`` and faces by the Hilbert order of their
-    centres.  Returns (dist (N,), fid (N,) i32[, WindowedMeta])."""
+    centres.  ``starts``, ``prep`` and ``sub_ids`` (from
+    :func:`subsample_ids`) depend only on the points and the face
+    count, so a solver makes them once per block.  Returns
+    (dist (N,), fid (N,) i32[, WindowedMeta])."""
     window = CORR_W if window is None else window
     n_anchors = CORR_A if n_anchors is None else n_anchors
     N = points.shape[0]
@@ -170,8 +193,8 @@ def nearest_face_windowed(points, centers, f_mask, block_size=256,
         starts = windowed_anchor_starts(
             points, centers, f_mask, block_size=block_size,
             window=window, n_subsample=n_subsample, n_anchors=n_anchors)
-    sub_ids = torch.from_numpy(_subsample_ids(Fp, n_subsample)).to(
-        points.device)
+    if sub_ids is None:
+        sub_ids = subsample_ids(Fp, n_subsample, points.device)
     d2k, fidk, jsk = cuda_window.window_min(
         prep.blocks_t, starts.int(), centers.T.contiguous(),
         _masked_c2(centers, f_mask), sub_ids, window=window,
@@ -185,7 +208,7 @@ def nearest_face_windowed(points, centers, f_mask, block_size=256,
                             max(Fp_al - window, 0)).int()
     return d_out, fidf, WindowedMeta(starts=starts_al,
                                      js=jsk.reshape(-1)[:N],
-                                     sub_ids=sub_ids.int())
+                                     sub_ids=sub_ids)
 
 
 def correspondence_weights(positions, faces, point_xyz, nearest_idx):

@@ -11,6 +11,12 @@ the JAX package are thin wrappers over it: ``windowed_ah`` (12 columns
 given columns).  On a CUDA tensor ``windowed_scatter`` launches
 ``csrc/scatter.cu``; on a CPU tensor it runs ``windowed_scatter_plain``
 (the same routing, then ``index_add_``).
+
+Both return the first C columns of a (num_segments, C4) table whose row
+stride C4 is C rounded up to a multiple of 4 (12, 20, 8, <= 12), so the
+kernel can add each row with 16-byte vector atomics.  Callers pass the
+window starts as the search returned them (the kernel rounds them down
+to 128 and clamps them itself) and ``sub_ids`` as int32.
 """
 
 from __future__ import annotations
@@ -23,6 +29,7 @@ from .cuda_window import CORR_W
 MODES = {'given': 0, 'ah': 1, 'ahw2': 2, 'w2': 3}
 MODE_COLS = {'ah': 12, 'ahw2': 18, 'w2': 6}
 MAX_GIVEN_COLS = 12
+INT32_MAX = 2 ** 31 - 1
 
 
 def _columns(mode, w, res, vals):
@@ -58,8 +65,9 @@ def route(fid, js, starts_al, sub_ids, window, block_size, discard_sub):
     return torch.where(in_win, fid, sub_t)
 
 
-def _prepare(mode, w, res, vals, fid, js, starts, sub_ids, num_segments,
-             block_size, window):
+def _check(mode, w, res, vals, fid, js, starts, num_segments, block_size,
+           window):
+    """Validate the inputs; returns (N, C, W)."""
     if mode not in MODES:
         raise ValueError(f'unknown mode {mode!r}')
     lead = vals if mode == 'given' else w
@@ -78,13 +86,21 @@ def _prepare(mode, w, res, vals, fid, js, starts, sub_ids, num_segments,
     if nb * block_size < N:
         raise ValueError(f'{nb} blocks of {block_size} cannot hold {N} '
                          f'rows')
+    if N > INT32_MAX or num_segments > INT32_MAX:
+        raise ValueError('N and num_segments must stay below 2**31')
     if window is None:
         window = CORR_W
-    Fp_al = -(-num_segments // 128) * 128
-    W = min(window, Fp_al)
-    starts_al = torch.clamp((starts.int() // 128) * 128, 0,
-                            max(Fp_al - W, 0)).int().contiguous()
-    return N, W, starts_al
+    C = vals.shape[1] if mode == 'given' else MODE_COLS[mode]
+    return N, C, min(window, -(-num_segments // 128) * 128)
+
+
+def _zero_table(num_segments, C, device):
+    """(num_segments, C) view of a zeroed table with row stride C
+    rounded up to 4, and that stride."""
+    C4 = -(-C // 4) * 4
+    out = torch.zeros((num_segments, C4), dtype=torch.float32,
+                      device=device)
+    return out, C4
 
 
 def windowed_scatter(mode, w, res, vals, fid, js, starts, sub_ids,
@@ -98,32 +114,32 @@ def windowed_scatter(mode, w, res, vals, fid, js, starts, sub_ids,
         return windowed_scatter_plain(mode, w, res, vals, fid, js, starts,
                                       sub_ids, num_segments, block_size,
                                       window, discard_sub)
-    N, W, starts_al = _prepare(mode, w, res, vals, fid, js, starts,
-                               sub_ids, num_segments, block_size, window)
-    C = vals.shape[1] if mode == 'given' else MODE_COLS[mode]
-    f32 = [t.contiguous() for t in (w, res, vals) if t is not None]
+    N, C, W = _check(mode, w, res, vals, fid, js, starts, num_segments,
+                     block_size, window)
+    f32 = [t for t in (w, res, vals) if t is not None]
     for t in f32:
         if t.dtype != torch.float32:
             raise TypeError(f'expected float32, got {t.dtype}')
-    fid_i = fid.int().contiguous()
-    js_i = js.int().contiguous()
-    sub_i = sub_ids.int().contiguous()
-    _build.require_cuda(*f32, fid_i, js_i, starts_al, sub_i)
-    out = torch.zeros((num_segments, C), dtype=torch.float32,
-                      device=lead.device)
+    for t in (fid, js, starts, sub_ids):
+        if t.dtype != torch.int32:
+            raise TypeError(f'fid, js, starts and sub_ids must be int32, '
+                            f'got {t.dtype}')
+    _build.require_cuda(*f32, fid, js, starts, sub_ids)
+    out, C4 = _zero_table(num_segments, C, lead.device)
 
     def ptr(t):
-        return None if t is None else t.contiguous().data_ptr()
+        return None if t is None else t.data_ptr()
 
-    L = _build.lib()
-    err = L.csw_windowed_scatter(
-        ptr(w), ptr(res), ptr(vals), fid_i.data_ptr(), js_i.data_ptr(),
-        starts_al.data_ptr(), sub_i.data_ptr(), N, block_size,
-        starts_al.shape[1], W, sub_i.numel(), num_segments, MODES[mode],
-        C, int(bool(discard_sub)), out.data_ptr(), _build.stream_ptr(out))
+    Fp_al = -(-num_segments // 128) * 128
+    err = _build.lib().csw_windowed_scatter(
+        ptr(w), ptr(res), ptr(vals), fid.data_ptr(), js.data_ptr(),
+        starts.data_ptr(), sub_ids.data_ptr(), N, block_size,
+        starts.shape[1], W, max(Fp_al - W, 0), sub_ids.numel(),
+        num_segments, MODES[mode], C, C4, int(bool(discard_sub)),
+        out.data_ptr(), _build.stream_ptr(out))
     _build.check(err, 'windowed_scatter')
     windowed_scatter.launches += 1
-    return out
+    return out[:, :C]
 
 
 windowed_scatter.launches = 0
@@ -133,16 +149,19 @@ def windowed_scatter_plain(mode, w, res, vals, fid, js, starts, sub_ids,
                            num_segments, block_size=256, window=None,
                            discard_sub=False):
     """Plain PyTorch version of :func:`windowed_scatter`: the same
-    routing, then ``index_add_``."""
-    N, W, starts_al = _prepare(mode, w, res, vals, fid, js, starts,
-                               sub_ids, num_segments, block_size, window)
+    routing, then ``index_add_`` into the same padded-stride table."""
+    N, C, W = _check(mode, w, res, vals, fid, js, starts, num_segments,
+                     block_size, window)
+    Fp_al = -(-num_segments // 128) * 128
+    starts_al = torch.clamp((starts.int() // 128) * 128, 0,
+                            max(Fp_al - W, 0))
     rows = _columns(mode, w, res, vals)
     tgt = route(fid, js, starts_al, sub_ids, W, block_size, discard_sub)
     keep = (tgt >= 0) & (tgt < num_segments)
-    out = torch.zeros((num_segments, rows.shape[1]), dtype=torch.float32,
-                      device=rows.device)
-    out.index_add_(0, tgt[keep], rows[keep])
-    return out
+    out, _ = _zero_table(num_segments, C, rows.device)
+    view = out[:, :C]
+    view.index_add_(0, tgt[keep], rows[keep])
+    return view
 
 
 def windowed_ah(w, res, fid, js, starts, sub_ids, num_segments,

@@ -15,8 +15,9 @@ the block when it triggers.
 With ``corr_method='windowed'`` the nearest-face search runs through K1
 (``ops.cuda_window``) and the A^T accumulation through K2
 (``ops.cuda_scatter``).  With ``tables`` (``ops.meshdata.gather_tables``)
-the face-corner, one-ring, fold and search-direction gathers run through
-K3 (``ops.cuda_gather``).  On CPU tensors each kernel wrapper runs its
+the face-corner, one-ring and search-direction gathers run through K3
+(``ops.cuda_gather``) and the faces -> vertices fold through its fused
+gather + masked sum.  On CPU tensors each kernel wrapper runs its
 plain PyTorch version.
 """
 
@@ -29,7 +30,7 @@ import torch
 
 from ..ops import correspondence as corr
 from ..ops import normals as _normals
-from ..ops.cuda_gather import row_gather
+from ..ops.cuda_gather import row_gather, row_group_sum
 from ..ops.cuda_scatter import windowed_ah, windowed_ahw2
 
 
@@ -115,16 +116,14 @@ def compute_ncc(f, nbr_v, vnormals, point_influence, v_mask, kmajor=None):
 
 def _fold(fused, faces, Vp, tables):
     """faces -> vertices fold of the (3 Fp, C) corner rows: with
-    ``tables``, a K3 gather of each vertex's incident rows plus a
-    masked sum (and the overflow rows added exactly); else
+    ``tables``, K3's fused gather + masked sum of each vertex's
+    incident rows (and the overflow rows added exactly); else
     ``index_add_``."""
     if tables is None:
         out = torch.zeros((Vp, fused.shape[1]), dtype=fused.dtype,
                           device=fused.device)
         return out.index_add_(0, faces.reshape(-1).long(), fused)
-    KI = tables.fold_care.shape[1]
-    vg = row_gather(fused, tables.fold_idx).reshape(Vp, KI, -1)
-    out = (vg * tables.fold_care[..., None].to(fused.dtype)).sum(1)
+    out = row_group_sum(fused, tables.fold_idx, tables.fold_care)
     if tables.fold_ov is not None:
         ov_rows, ov_verts = tables.fold_ov
         out = out.index_add(0, ov_verts, fused[ov_rows])
@@ -177,14 +176,15 @@ def cg_block(positions, faces, f_mask, v_mask, nbr_v,
     vmask3 = v_mask.to(f32)[:, None]
     lam2 = float(np.float32(lam0) ** 2)
 
-    corr_starts = corr_prep = None
+    corr_starts = corr_prep = corr_sub = None
     if corr_method == 'windowed':
-        # anchors and point blocks once per CG block: points are fixed
-        # and faces drift little within a block (the subsample
-        # fallback still re-checks every iteration)
+        # anchors, point blocks and the face subsample once per CG
+        # block: points are fixed and faces drift little within a block
+        # (the subsample fallback still re-checks every iteration)
         centers0 = positions[faces_l].mean(1)
         corr_starts = corr.windowed_anchor_starts(points, centers0, f_mask)
         corr_prep = corr.windowed_points_prep(points)
+        corr_sub = corr.subsample_ids(Fp, device=dev)
     kmajor = None if tables is None else (
         tables.ncc_idx, tables.ncc_care, tables.ncc_ov)
 
@@ -217,7 +217,7 @@ def cg_block(positions, faces, f_mask, v_mask, nbr_v,
         if corr_method == 'windowed':
             dmean, fi, meta = corr.nearest_face_windowed(
                 points, centers, f_mask, return_meta=True,
-                starts=corr_starts, prep=corr_prep)
+                starts=corr_starts, prep=corr_prep, sub_ids=corr_sub)
         else:
             dmean, fi = corr.nearest_face_bruteforce(
                 points, centers, f_mask, face_chunk=face_chunk)

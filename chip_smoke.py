@@ -3,8 +3,11 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels (K1 window search, K2 windowed scatter,
-K3 row gather) with nvcc, holds each against its plain PyTorch version
-at the shapes of the fit's path, times the bench configuration's CG
+K3 row gather and K3f, the fold's fused gather + masked group sum) with
+nvcc, holds each against its plain PyTorch version at the shapes of the
+fit's path, and reads each kernel's device time (torch.profiler kernel
+events) beside its bound, its plain version's and a library call's, on
+the path's own inputs.  It then times the bench configuration's CG
 block, and drives the 20-iteration no-surgery MembraneMesh.shrink_wrap
 fit of a 1e6-localization sphere cloud (R = 500 nm, sigma = 5 nm) from
 its marching-cubes seed, counting the kernels' launches during the fit.
@@ -100,7 +103,8 @@ def sphere_cloud(n=N_POINTS, radius=RADIUS, sigma=SIGMA, seed=0):
 
 def time_ms(fn, reps=10, warmup=2):
     """Mean milliseconds per call of ``fn`` on the current CUDA stream,
-    from CUDA events around ``reps`` back-to-back calls."""
+    from CUDA events around ``reps`` back-to-back calls (host work of
+    the call included)."""
     import torch
     for _ in range(warmup):
         fn()
@@ -113,6 +117,33 @@ def time_ms(fn, reps=10, warmup=2):
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / reps
+
+
+def device_ms(fn, match=None, reps=20, warmup=3):
+    """Device time of ``fn`` from the device events torch.profiler
+    records over ``reps`` calls.  With ``match``, the mean duration of
+    a launch of the kernels whose name contains it (a kernel's own
+    time; the profiler now and then drops an event, so this averages
+    over the launches it saw); without, the summed duration of every
+    kernel, copy and fill the calls made, per call (a library call's
+    or a plain version's time).  Returns dict(ms, call_ms = CUDA-event
+    wall per call, launches = matched device events per call)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    call_ms = time_ms(fn, reps=reps, warmup=warmup)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+           and (match is None or match in e.name)]
+    check(len(evs) > 0, f'profiler saw no device event'
+          f'{" named " + match if match else ""}')
+    us = sum(e.time_range.end - e.time_range.start for e in evs)
+    return dict(ms=us / 1e3 / (len(evs) if match else reps),
+                call_ms=call_ms, launches=len(evs) / reps)
 
 
 def bound_ms(n_bytes, n_flops):
@@ -169,116 +200,41 @@ def _kernel_mesh(device):
                                     hilbert_faces=False, device=device)
 
 
-def phase_kernels(device='cuda', n_points=N_POINTS, mesh_fn=_kernel_mesh,
-                  timer=time_ms):
-    """Each kernel against its plain version on the same inputs, at the
-    fit path's shapes.  Returns the per-kernel records."""
+def path_inputs(device='cuda', n_points=N_POINTS, mesh_fn=_kernel_mesh):
+    """Every kernel's inputs at the fit path's shapes, made only with
+    calls that each version of the port has: K1's window search of the
+    sorted 1e6-point cloud over a remeshed R = 500 sphere, K2's 'ah'
+    rows on K1's own face ids and subsample slots (no polish, as
+    ``cg_block`` runs), the three gathers' tables and index streams,
+    and the fold's (3 Fp, 7) corner rows."""
     import torch
+    from types import SimpleNamespace
     from ch_shrinkwrap_torch.ops import correspondence as corr
-    from ch_shrinkwrap_torch.ops import cuda_window, cuda_scatter
-    from ch_shrinkwrap_torch.ops import cuda_gather, meshdata
+    from ch_shrinkwrap_torch.ops import cuda_window, meshdata
     from ch_shrinkwrap_torch.ops.ordering import fit_point_order
-    from ch_shrinkwrap_torch.solver.shrinkwrap import _fold
     dev = torch.device(device)
     pts_np, _ = sphere_cloud(n_points)
     pts_np = np.ascontiguousarray(pts_np[fit_point_order(pts_np)])
     mesh, ma = mesh_fn(dev)
     pts = torch.from_numpy(pts_np).to(dev)
-    faces_l = ma.faces.long()
-    centers = ma.positions[faces_l].mean(1)
+    centers = ma.positions[ma.faces.long()].mean(1)
     Fp = ma.faces.shape[0]
     Vp = ma.positions.shape[0]
-    recs = {}
-
-    # ---- K1 --------------------------------------------------------
+    Fp_al = -(-Fp // 128) * 128
+    W = min(corr.CORR_W, Fp_al)
     starts = corr.windowed_anchor_starts(pts, centers, ma.f_mask)
     prep = corr.windowed_points_prep(pts)
-    sub_ids = torch.from_numpy(corr._subsample_ids(Fp, 1024)).to(dev)
+    sub_ids = torch.from_numpy(corr._subsample_ids(Fp, 1024)).to(
+        dev).int()
     c2 = corr._masked_c2(centers, ma.f_mask)
-    centers_t = centers.T.contiguous()
-    W = min(corr.CORR_W, -(-Fp // 128) * 128)
-    k1_args = (prep.blocks_t, starts, centers_t, c2, sub_ids, W, 3)
+    k1_args = (prep.blocks_t, starts, centers.T.contiguous(), c2, sub_ids,
+               W, 3)
     d2k, fidk, jsk = cuda_window.window_min(*k1_args)
-    d2p, fidp, jsp = cuda_window.window_min_plain(*k1_args)
-    agree = float((fidk == fidp).float().mean())
-    js_agree = float((jsk == jsp).float().mean())
-    k1_err = float((d2k - d2p).abs().max())
-    k1_tol = 1e-3 * float(d2p.abs().max())
-    check(agree >= 0.999, f'K1 face-id agreement {agree} < 0.999')
-    check(k1_err <= k1_tol, f'K1 |d2 - plain| {k1_err} > {k1_tol}')
-    nb, _, B = prep.blocks_t.shape
-    n_cand = 3 * W + sub_ids.numel()
-    k1_bytes = (nbytes(prep.blocks_t, starts, sub_ids, d2k, fidk, jsk)
-                + 16 * (-(-Fp // 128) * 128 + sub_ids.numel()))
-    k1_flops = 7.0 * nb * B * n_cand        # 3 mul, 2 add, 1 mul, 1 sub
-    bms, bby = bound_ms(k1_bytes, k1_flops)
-    recs['K1'] = dict(
-        name='window_min', route='cuda',
-        source='ch_shrinkwrap_torch/csrc/window.cu',
-        replaces='JAX package ops/pallas_kernels.py:26 _window_kernel',
-        max_abs_err=k1_err,
-        ms=timer(lambda: cuda_window.window_min(*k1_args), reps=10),
-        plain_ms=timer(lambda: cuda_window.window_min_plain(*k1_args),
-                       reps=3, warmup=1),
-        bound_ms=bms, bound_by=bby, library_ms=None,
-        checks=dict(fid_agree=agree, js_agree=js_agree, tol=k1_tol,
-                    V=int(mesh.vertices.shape[0]), Vp=Vp, Fp=Fp,
-                    n_cand=n_cand))
-
-    # ---- K2 --------------------------------------------------------
     N = n_points
-    fid0 = fidk.reshape(-1)[:N]
-    js = jsk.reshape(-1)[:N]
-    meta_starts = torch.clamp((starts // 128) * 128, 0,
-                              max(-(-Fp // 128) * 128 - W, 0)).int()
-    # rows whose face lies in no window of their block: a two-step
-    # adjacency polish moves some, and 0.1% get a random face
-    _, fid = corr.refine_correspondence(pts, centers, ma.face_nbrs, fid0,
-                                        n_iter=2)
     g = torch.Generator(device=dev).manual_seed(0)
-    pick = torch.rand(N, generator=g, device=dev) < 1e-3
-    rand_f = torch.randint(0, mesh.faces.shape[0], (N,), generator=g,
-                           device=dev, dtype=torch.int32)
-    fid = torch.where(pick, rand_f, fid).int()
-    tgt = cuda_scatter.route(fid, js, meta_starts, sub_ids, W, 256, False)
-    n_outside = int((tgt != fid.long()).sum())
-    check(n_outside > 0, 'K2 test has no row outside every window')
     w = torch.rand((N, 3), generator=g, device=dev) * 0.9 + 0.1
     w = w / w.sum(1, keepdim=True)
     res = torch.randn((N, 3), generator=g, device=dev)
-    vals = torch.randn((N, 12), generator=g, device=dev)
-    k2_err = {}
-    for mode in ('ah', 'ahw2', 'w2', 'given'):
-        args = (mode, w, res if mode in ('ah', 'ahw2') else None,
-                vals if mode == 'given' else None, fid, js, meta_starts,
-                sub_ids, Fp)
-        out = cuda_scatter.windowed_scatter(*args)
-        ref = cuda_scatter.windowed_scatter_plain(*args)
-        err = float((out - ref).abs().max())
-        tol = 1e-4 * float(ref.abs().max())
-        check(err <= tol, f'K2 {mode}: max err {err} > {tol}')
-        k2_err[mode] = err
-    ah_args = ('ah', w, res, None, fid, js, meta_starts, sub_ids, Fp)
-    rows = cuda_scatter._columns('ah', w, res, None)
-    keep = tgt >= 0
-    rows_k, tgt_k = rows[keep].contiguous(), tgt[keep].contiguous()
-    lib_out = torch.zeros((Fp, 12), device=dev)
-    k2_bytes = nbytes(w, res, fid, js, meta_starts, sub_ids) + Fp * 12 * 4
-    bms, bby = bound_ms(k2_bytes, 24.0 * N)
-    recs['K2'] = dict(
-        name='windowed_scatter', route='cuda',
-        source='ch_shrinkwrap_torch/csrc/scatter.cu',
-        replaces='JAX package ops/pallas_scatter.py:44 _scatter_kernel',
-        max_abs_err=k2_err['ah'],
-        ms=timer(lambda: cuda_scatter.windowed_scatter(*ah_args)),
-        plain_ms=timer(lambda: cuda_scatter.windowed_scatter_plain(
-            *ah_args), reps=5),
-        bound_ms=bms, bound_by=bby,
-        library_ms=timer(lambda: lib_out.index_add_(0, tgt_k, rows_k)),
-        checks=dict(rows_outside_windows=n_outside,
-                    **{f'err_{k}': v for k, v in k2_err.items()}))
-
-    # ---- K3: the four gathers of one iteration ------------------------
     tables = meshdata.gather_tables(ma)
     f = ma.positions
     vn = torch.nn.functional.normalize(f, dim=1)
@@ -286,37 +242,272 @@ def phase_kernels(device='cuda', n_points=N_POINTS, mesh_fn=_kernel_mesh,
     # accumulators are masked)
     fused = torch.randn((3 * Fp, 7), generator=g, device=dev) \
         * ma.f_mask.repeat_interleave(3)[:, None]
-    S9 = torch.randn((Vp, 9), generator=g, device=dev)
-    calls = {'tri': (f, tables.tri_idx),
-             'ncc': (torch.cat([f, vn], 1), tables.ncc_idx),
-             'fold': (fused, tables.fold_idx),
-             'S': (S9, tables.tri_idx)}
-    k3 = {'ms': 0.0, 'plain_ms': 0.0, 'library_ms': 0.0, 'bytes': 0}
-    for key, (src, idx) in calls.items():
+    gathers = {'tri': (f, tables.tri_idx),
+               'ncc': (torch.cat([f, vn], 1), tables.ncc_idx),
+               'S': (torch.randn((Vp, 9), generator=g, device=dev),
+                     tables.tri_idx)}
+    return SimpleNamespace(
+        dev=dev, mesh=mesh, ma=ma, pts=pts, centers=centers, Fp=Fp,
+        Vp=Vp, Fp_al=Fp_al, W=W, N=N, starts=starts, prep=prep,
+        sub_ids=sub_ids, k1_args=k1_args, k1_out=(d2k, fidk, jsk),
+        meta_starts=torch.clamp((starts // 128) * 128, 0,
+                                max(Fp_al - W, 0)).int(),
+        fid=fidk.reshape(-1)[:N], js=jsk.reshape(-1)[:N], w=w, res=res,
+        g=g, tables=tables, fused=fused, gathers=gathers)
+
+
+def k1_tie_cases(device, W=256, nsub=64):
+    """K1 inputs whose minima are exact ties, each with the face id and
+    subsample slot of the first minimum in concatenation order (windows
+    in anchor order, then the subsample).  The points sit at the
+    origin, where the distance is c2 exactly, and the tied faces share
+    c2 = 1 while every other face has a larger, distinct c2.  Yields
+    (name, window_min args, expected fid, expected js)."""
+    import torch
+    from ch_shrinkwrap_torch.ops import correspondence as corr
+    dev = torch.device(device)
+    Fp = 4 * W
+    sub = corr.subsample_ids(Fp, nsub, dev)
+    sub_l = sub.tolist()
+    hi = next(k for k, f in enumerate(sub_l) if f >= W)
+    lo = next(k for k, f in enumerate(sub_l) if f < 2 * W)
+    cases = [
+        # the first window starts at the higher face id
+        ('two_windows', [2 * W, W, 0], [2 * W + 5, 5], 2 * W + 5, 0),
+        ('one_window', [0, W, 2 * W], [W + 40, W + 9], W + 9, 0),
+        # window face (lower id) against a subsample face
+        ('window_then_sub', [0, 0, 0], [sub_l[hi], 10], 10, 0),
+        # window face (higher id) against a subsample face
+        ('window_then_lower_sub', [2 * W] * 3, [sub_l[lo], 2 * W + 3],
+         2 * W + 3, 0),
+        ('two_subs', [0, 0, 0], [sub_l[hi + 2], sub_l[hi + 1]],
+         sub_l[hi + 1], hi + 1),
+    ]
+    g = torch.Generator().manual_seed(0)
+    centers_t = torch.randn((3, Fp), generator=g).to(dev)
+    blocks_t = torch.zeros((1, 3, 256), device=dev)
+    for name, starts, tied, fid, js in cases:
+        c2 = torch.linspace(10.0, 20.0, Fp, device=dev)
+        c2[torch.tensor(tied, device=dev)] = 1.0
+        args = (blocks_t, torch.tensor([starts], dtype=torch.int32,
+                                       device=dev), centers_t, c2, sub, W, 3)
+        yield name, args, fid, js
+
+
+def k1_lattice_case(device, nb=64, Fp=4096, W=1024, nsub=256, seed=0):
+    """K1 inputs on an integer lattice: points and centres with small
+    integer coordinates, so every distance is an exact integer and
+    many minima are exact ties."""
+    import torch
+    from ch_shrinkwrap_torch.ops import correspondence as corr
+    rng = np.random.default_rng(seed)
+    dev = torch.device(device)
+    pts = rng.integers(-4, 5, (nb, 3, 256)).astype(np.float32)
+    cen = rng.integers(-4, 5, (3, Fp)).astype(np.float32)
+    starts = (rng.integers(0, (Fp - W) // 128 + 1, (nb, 3)) * 128)
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    return (t(pts), t(starts.astype(np.int32)), t(cen),
+            t((cen * cen).sum(0)), corr.subsample_ids(Fp, nsub, dev), W, 3)
+
+
+def adversarial_rows(inp):
+    """K2 rows that leave the fit path: a two-step adjacency polish
+    moves some faces, and 0.1% of the rows get a random face, so rows
+    lie outside every window of their block and pile onto subsample
+    faces."""
+    import torch
+    from ch_shrinkwrap_torch.ops import correspondence as corr
+    _, fid = corr.refine_correspondence(inp.pts, inp.centers,
+                                        inp.ma.face_nbrs, inp.fid, n_iter=2)
+    pick = torch.rand(inp.N, generator=inp.g, device=inp.dev) < 1e-3
+    rand_f = torch.randint(0, inp.mesh.faces.shape[0], (inp.N,),
+                           generator=inp.g, device=inp.dev,
+                           dtype=torch.int32)
+    return torch.where(pick, rand_f, fid).int()
+
+
+def phase_kernels(device='cuda', n_points=N_POINTS, mesh_fn=_kernel_mesh,
+                  timer=device_ms):
+    """Each kernel against its plain version on the same inputs, at the
+    fit path's shapes, and its device time beside its bound, its plain
+    version's and a library call's.  Returns the per-kernel records."""
+    import torch
+    from ch_shrinkwrap_torch.ops import cuda_window, cuda_scatter
+    from ch_shrinkwrap_torch.ops import cuda_gather
+    from ch_shrinkwrap_torch.solver.shrinkwrap import _fold
+    inp = path_inputs(device, n_points, mesh_fn)
+    dev, N, Fp, Vp, W = inp.dev, inp.N, inp.Fp, inp.Vp, inp.W
+    recs = {}
+
+    # ---- K1 --------------------------------------------------------
+    d2k, fidk, jsk = inp.k1_out
+    d2p, fidp, jsp = cuda_window.window_min_plain(*inp.k1_args)
+    n_fid = int((fidk != fidp).sum())
+    n_js = int((jsk != jsp).sum())
+    k1_err = float((d2k - d2p).abs().max())
+    k1_tol = 1e-3 * float(d2p.abs().max())
+    check(n_fid <= 1e-3 * fidk.numel(), f'K1: {n_fid} face ids differ')
+    check(k1_err <= k1_tol, f'K1 |d2 - plain| {k1_err} > {k1_tol}')
+    for name, args, fid, js in k1_tie_cases(dev):
+        for fn in (cuda_window.window_min, cuda_window.window_min_plain):
+            _, f_, j_ = fn(*args)
+            check(bool((f_ == fid).all()) and bool((j_ == js).all()),
+                  f'K1 tie {name} ({fn.__name__}): fid {f_[0, 0]} js '
+                  f'{j_[0, 0]}, want the first minimum {fid} / {js}')
+    lat = k1_lattice_case(dev)
+    lat_k = cuda_window.window_min(*lat)
+    lat_p = cuda_window.window_min_plain(*lat)
+    lat_c = cuda_window.window_min_plain(*(
+        a.cpu() if torch.is_tensor(a) else a for a in lat))
+    for a_, b_, c_ in zip(lat_k, lat_p, lat_c):
+        check(torch.equal(a_, b_) and torch.equal(a_.cpu(), c_),
+              'K1 lattice ties: kernel, plain and CPU plain differ')
+    nb, _, B = inp.prep.blocks_t.shape
+    n_cand = 3 * W + inp.sub_ids.numel()
+    k1_bytes = (nbytes(inp.prep.blocks_t, inp.starts, inp.sub_ids, d2k,
+                       fidk, jsk) + 16 * (inp.Fp_al + inp.sub_ids.numel()))
+    # 3 mul, 2 add, 1 mul, 1 sub a candidate, at the fp32 peak (FMA
+    # counted as two); the kernel does not contract, so it issues about
+    # 11 fp32-pipe instructions a candidate at half that rate
+    k1_flops = 7.0 * nb * B * n_cand
+    bms, bby = bound_ms(k1_bytes, k1_flops)
+    t1 = timer(lambda: cuda_window.window_min(*inp.k1_args),
+               match='window_min', reps=10)
+    recs['K1'] = dict(
+        name='window_min', route='cuda',
+        source='ch_shrinkwrap_torch/csrc/window.cu',
+        replaces='JAX package ops/pallas_kernels.py:26 _window_kernel',
+        max_abs_err=k1_err, ms=t1['ms'], call_ms=t1['call_ms'],
+        plain_ms=timer(lambda: cuda_window.window_min_plain(*inp.k1_args),
+                       reps=3, warmup=1)['ms'],
+        bound_ms=bms, bound_by=bby, library_ms=None,
+        checks=dict(fid_differ=n_fid, js_differ=n_js, tol=k1_tol,
+                    tie_cases='first minimum', lattice='equal',
+                    V=int(inp.mesh.vertices.shape[0]), Vp=Vp, Fp=Fp,
+                    n_cand=n_cand))
+
+    # ---- K2: the path's rows, and rows outside every window ----------
+    vals = torch.randn((N, 12), generator=inp.g, device=dev)
+    fid_adv = adversarial_rows(inp)
+    k2_err, k2 = {}, {}
+    for rows_name, fid in (('path', inp.fid), ('adversarial', fid_adv)):
+        tgt = cuda_scatter.route(fid, inp.js, inp.meta_starts, inp.sub_ids,
+                                 W, 256, False)
+        n_out = int((tgt != fid.long()).sum())
+        if rows_name == 'path':
+            check(n_out == 0, f'K2: {n_out} path rows leave their face')
+        else:
+            check(n_out > 0, 'K2: no adversarial row outside every window')
+        for mode in ('ah', 'ahw2', 'w2', 'given'):
+            args = (mode, inp.w, inp.res if mode in ('ah', 'ahw2') else None,
+                    vals if mode == 'given' else None, fid, inp.js,
+                    inp.meta_starts, inp.sub_ids, Fp)
+            out = cuda_scatter.windowed_scatter(*args)
+            ref = cuda_scatter.windowed_scatter_plain(*args)
+            err = float((out - ref).abs().max())
+            tol = 1e-4 * float(ref.abs().max())
+            check(err <= tol, f'K2 {mode} on {rows_name} rows: max err '
+                  f'{err} > {tol}')
+            k2_err[f'{rows_name}_{mode}'] = err
+        ah = ('ah', inp.w, inp.res, None, fid, inp.js, inp.meta_starts,
+              inp.sub_ids, Fp)
+        rows = cuda_scatter._columns('ah', inp.w, inp.res, None)
+        keep = tgt >= 0
+        rows_k, tgt_k = rows[keep].contiguous(), tgt[keep].contiguous()
+        lib_out = torch.zeros((Fp, 12), device=dev)
+        t2 = timer(lambda: cuda_scatter.windowed_scatter(*ah),
+                   match='windowed_scatter')
+        k2[rows_name] = dict(
+            ms=t2['ms'], call_ms=t2['call_ms'], rows_outside=n_out,
+            plain_ms=timer(lambda: cuda_scatter.windowed_scatter_plain(
+                *ah), reps=5)['ms'],
+            library_ms=timer(lambda: lib_out.index_add_(0, tgt_k,
+                                                        rows_k))['ms'])
+    k2_bytes = (nbytes(inp.w, inp.res, inp.fid, inp.js, inp.meta_starts,
+                       inp.sub_ids) + Fp * 12 * 4)
+    bms, bby = bound_ms(k2_bytes, 24.0 * N)
+    recs['K2'] = dict(
+        name='windowed_scatter', route='cuda',
+        source='ch_shrinkwrap_torch/csrc/scatter.cu',
+        replaces='JAX package ops/pallas_scatter.py:44 _scatter_kernel',
+        max_abs_err=k2_err['path_ah'], ms=k2['path']['ms'],
+        call_ms=k2['path']['call_ms'], plain_ms=k2['path']['plain_ms'],
+        bound_ms=bms, bound_by=bby, library_ms=k2['path']['library_ms'],
+        checks=dict(adversarial=k2['adversarial'],
+                    **{f'err_{k}': v for k, v in k2_err.items()}))
+
+    # ---- K3: the tri, ncc and S gathers of one iteration --------------
+    k3 = dict(ms=0.0, call_ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0)
+    per_call = {}
+    for key, (src, idx) in inp.gathers.items():
         out = cuda_gather.row_gather(src, idx)
-        ref = cuda_gather.row_gather_plain(src, idx)
-        check(torch.equal(out, ref), f'K3 {key}: not exact')
+        check(torch.equal(out, cuda_gather.row_gather_plain(src, idx)),
+              f'K3 {key}: not exact')
         idx64 = idx.long()
-        k3['ms'] += timer(lambda: cuda_gather.row_gather(src, idx))
-        k3['plain_ms'] += timer(lambda: cuda_gather.row_gather_plain(src,
-                                                                    idx))
-        k3['library_ms'] += timer(lambda: torch.index_select(src, 0, idx64))
+        t3 = timer(lambda: cuda_gather.row_gather(src, idx),
+                   match='row_gather')
+        r = dict(ms=t3['ms'], call_ms=t3['call_ms'],
+                 plain_ms=timer(lambda: cuda_gather.row_gather_plain(
+                     src, idx))['ms'],
+                 library_ms=timer(lambda: torch.index_select(
+                     src, 0, idx64))['ms'])
+        per_call[key] = {k: round(v, 5) for k, v in r.items()}
+        for k, v in r.items():
+            k3[k] += v
         k3['bytes'] += nbytes(src, idx, out)
-    # the fold's masked group sum around the gather, against index_add_
-    fold = _fold(fused, ma.faces, Vp, tables)
-    fold_ref = _fold(fused, ma.faces, Vp, None)
-    fold_err = float((fold - fold_ref).abs().max())
-    check(fold_err <= 1e-4 * float(fold_ref.abs().max()),
-          f'K3 fold vs index_add_: {fold_err}')
     bms, bby = bound_ms(k3['bytes'], 0.0)
     recs['K3'] = dict(
         name='row_gather', route='cuda',
         source='ch_shrinkwrap_torch/csrc/gather.cu',
         replaces='JAX package ops/pallas_gather.py:111 _gather_kernel',
-        max_abs_err=0.0, ms=k3['ms'], plain_ms=k3['plain_ms'],
-        bound_ms=bms, bound_by=bby, library_ms=k3['library_ms'],
-        checks=dict(per='one iteration: tri+ncc+fold+S gathers',
-                    fold_err=fold_err))
+        max_abs_err=0.0, ms=k3['ms'], call_ms=k3['call_ms'],
+        plain_ms=k3['plain_ms'], bound_ms=bms, bound_by=bby,
+        library_ms=k3['library_ms'],
+        checks=dict(per='one iteration: tri + ncc + S gathers',
+                    **per_call))
+
+    # ---- K3f: the fold's fused gather + masked group sum --------------
+    t = inp.tables
+    fused, faces_l = inp.fused, inp.ma.faces.reshape(-1).long()
+    out = cuda_gather.row_group_sum(fused, t.fold_idx, t.fold_care)
+    ref = cuda_gather.row_group_sum_plain(fused, t.fold_idx, t.fold_care)
+    err = float((out - ref).abs().max())
+    check(err <= 1e-4 * float(ref.abs().max()),
+          f'K3f vs its plain version: {err}')
+    fold = _fold(fused, inp.ma.faces, Vp, t)
+    fold_ref = _fold(fused, inp.ma.faces, Vp, None)
+    fold_err = float((fold - fold_ref).abs().max())
+    check(fold_err <= 1e-4 * float(fold_ref.abs().max()),
+          f'K3f fold vs index_add_: {fold_err}')
+    lib_out = torch.zeros((Vp, 7), device=dev)
+    KI = t.fold_care.shape[1]
+    care_f = t.fold_care[..., None].float()
+
+    def gather_mask_sum():
+        g_ = cuda_gather.row_gather(fused, t.fold_idx).reshape(Vp, KI, 7)
+        return (g_ * care_f).sum(1)
+
+    tf = timer(lambda: cuda_gather.row_group_sum(fused, t.fold_idx,
+                                                 t.fold_care),
+               match='row_group_sum')
+    bms, bby = bound_ms(nbytes(fused, t.fold_idx, t.fold_care, out), 0.0)
+    recs['K3f'] = dict(
+        name='row_group_sum', route='cuda',
+        source='ch_shrinkwrap_torch/csrc/gather.cu',
+        replaces='JAX package ops/pallas_gather.py:111 _gather_kernel '
+                 '+ masked sum solver/shrinkwrap.py:500',
+        max_abs_err=err, ms=tf['ms'], call_ms=tf['call_ms'],
+        plain_ms=timer(lambda: cuda_gather.row_group_sum_plain(
+            fused, t.fold_idx, t.fold_care))['ms'],
+        bound_ms=bms, bound_by=bby,
+        library_ms=timer(lambda: lib_out.index_add_(0, faces_l,
+                                                    fused))['ms'],
+        checks=dict(fold_err=fold_err,
+                    gather_mask_sum_ms=timer(gather_mask_sum)['ms'],
+                    fold_ms=timer(lambda: _fold(fused, inp.ma.faces, Vp,
+                                                t))['ms']))
     return recs
 
 
@@ -381,13 +572,14 @@ def phase_cg_block(device='cuda', n_points=N_POINTS, ico_sub=7, rf=5,
 
 
 def kernel_wrappers():
-    """The three kernel wrappers, whose ``launches`` count kernel
+    """The four kernel wrappers, whose ``launches`` count kernel
     launches."""
     from ch_shrinkwrap_torch.ops import cuda_window, cuda_scatter
     from ch_shrinkwrap_torch.ops import cuda_gather
     return {'K1': cuda_window.window_min,
             'K2': cuda_scatter.windowed_scatter,
-            'K3': cuda_gather.row_gather}
+            'K3': cuda_gather.row_gather,
+            'K3f': cuda_gather.row_group_sum}
 
 
 @contextlib.contextmanager
@@ -398,15 +590,16 @@ def plain_versions():
     from ch_shrinkwrap_torch.ops import cuda_gather
     from ch_shrinkwrap_torch.solver import shrinkwrap
     saved = (cuda_window.window_min, cuda_scatter.windowed_scatter,
-             shrinkwrap.row_gather)
+             shrinkwrap.row_gather, shrinkwrap.row_group_sum)
     cuda_window.window_min = cuda_window.window_min_plain
     cuda_scatter.windowed_scatter = cuda_scatter.windowed_scatter_plain
     shrinkwrap.row_gather = cuda_gather.row_gather_plain
+    shrinkwrap.row_group_sum = cuda_gather.row_group_sum_plain
     try:
         yield
     finally:
         (cuda_window.window_min, cuda_scatter.windowed_scatter,
-         shrinkwrap.row_gather) = saved
+         shrinkwrap.row_gather, shrinkwrap.row_group_sum) = saved
 
 
 def phase_fit(device='cuda', n_points=N_POINTS, grid_n=48, iters=20,
@@ -535,14 +728,14 @@ def main():
 
     print(f'total {time.time() - t_all:.1f}s', flush=True)
     table = []
-    for key in ('K1', 'K2', 'K3'):
+    for key in ('K1', 'K2', 'K3', 'K3f'):
         rec = dict(recs[key])
         rec.pop('checks')
         rec['launches'] = launches[key]
         table.append({k: rec[k] for k in (
             'name', 'route', 'source', 'replaces', 'launches',
-            'max_abs_err', 'ms', 'plain_ms', 'bound_ms', 'bound_by',
-            'library_ms')})
+            'max_abs_err', 'ms', 'call_ms', 'plain_ms', 'bound_ms',
+            'bound_by', 'library_ms')})
     print(env['nvidia_smi'], flush=True)
     print(json.dumps({'kernels': table}), flush=True)
     print(json.dumps({'ok': True, 'device': {

@@ -5,8 +5,9 @@ elsewhere.  Run on the card with
     python -m pytest --noconftest -p no:cacheprovider -m cuda \
         tests/test_torch_cuda.py
 
-(``--noconftest``: the suite's conftest configures JAX, which a
-PyTorch-only install need not have; this file imports only the port.)
+from the repository's root (``--noconftest``: the suite's conftest
+configures JAX, which a PyTorch-only install need not have; this file
+imports only the port, and the K1 tie cases of ``chip_smoke.py``).
 """
 
 import numpy as np
@@ -75,6 +76,27 @@ def test_window_min_kernel_matches_plain(problem):
     torch.testing.assert_close(d2k, d2p, rtol=0, atol=0)
 
 
+def test_window_min_ties_take_first_index(dev):
+    """Exact ties go to the first minimum in concatenation order in the
+    kernel and in its plain version on the card; on an integer lattice,
+    where ties are everywhere, kernel, plain version on the card and
+    plain version on the CPU agree on every output."""
+    from chip_smoke import k1_lattice_case, k1_tie_cases
+    from ch_shrinkwrap_torch.ops import cuda_window
+    for name, args, fid, js in k1_tie_cases(dev):
+        for fn in (cuda_window.window_min, cuda_window.window_min_plain):
+            _, f_, j_ = fn(*args)
+            assert bool((f_ == fid).all()) and bool((j_ == js).all()), \
+                (name, fn.__name__, int(f_[0, 0]), int(j_[0, 0]))
+    lat = k1_lattice_case(dev)
+    out_k = cuda_window.window_min(*lat)
+    out_p = cuda_window.window_min_plain(*lat)
+    out_c = cuda_window.window_min_plain(
+        *(a.cpu() if torch.is_tensor(a) else a for a in lat))
+    for a_, b_, c_ in zip(out_k, out_p, out_c):
+        assert torch.equal(a_, b_) and torch.equal(a_.cpu(), c_)
+
+
 @pytest.mark.parametrize('mode', ['ah', 'ahw2', 'w2', 'given'])
 def test_windowed_scatter_kernel_matches_plain(problem, mode):
     from ch_shrinkwrap_torch.ops import cuda_scatter
@@ -103,6 +125,57 @@ def test_windowed_scatter_kernel_matches_plain(problem, mode):
     torch.testing.assert_close(out, ref, rtol=0, atol=tol)
 
 
+def _scatter_case(dev, N, targets, C_given=12, seed=0):
+    """K2 inputs whose rows all lie inside their block's one window, so
+    row n goes to face targets[n]."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    nb = -(-N // 256)
+    fid = targets.int()
+    starts = torch.zeros((nb, 3), dtype=torch.int32, device=dev)
+    js = torch.zeros(N, dtype=torch.int32, device=dev)
+    sub = torch.arange(64, dtype=torch.int32, device=dev)
+    w = torch.rand((N, 3), generator=g, device=dev) + 0.1
+    res = torch.randn((N, 3), generator=g, device=dev)
+    vals = torch.randn((N, C_given), generator=g, device=dev)
+    return w, res, vals, fid, js, starts, sub
+
+
+@pytest.mark.parametrize('case', ['one_face', 'runs', 'interleaved',
+                                  'unaligned'])
+@pytest.mark.parametrize('mode', ['ah', 'ahw2', 'w2', 'given'])
+def test_windowed_scatter_preaggregation(dev, mode, case):
+    """Whole warps on one face, runs of equal faces, faces that repeat
+    out of order within a warp (the warp pre-aggregation's cases), and
+    a row count that is no multiple of the warp or the block."""
+    from ch_shrinkwrap_torch.ops import cuda_scatter
+    N = 100_003 if case == 'unaligned' else 65_536
+    n = torch.arange(N, device=dev)
+    targets = {'one_face': torch.full_like(n, 17),
+               'runs': n // 7,
+               'interleaved': (n * 5) % 3 + 32 * (n // 32),
+               'unaligned': n // 2}[case]
+    Fp = 2048 if case == 'one_face' else int(targets.max()) + 1
+    w, res, vals, fid, js, starts, sub = _scatter_case(
+        dev, N, targets, C_given=5 if case == 'unaligned' else 12)
+    if case != 'one_face':
+        # every row in a window of its block
+        blk = torch.arange(starts.shape[0], device=dev)
+        first = targets[torch.clamp(blk * 256, max=N - 1)].int()
+        starts = ((first // 128) * 128)[:, None].expand(-1, 3)
+        starts = starts.contiguous()
+    args = (mode, w, res if mode in ('ah', 'ahw2') else None,
+            vals if mode == 'given' else None, fid, js, starts, sub, Fp)
+    out = cuda_scatter.windowed_scatter(*args)
+    ref = cuda_scatter.windowed_scatter_plain(*args)
+    tgt = cuda_scatter.route(fid, js, starts, sub, min(2048, Fp), 256,
+                             False)
+    assert bool((tgt == fid.long()).all())
+    C = ref.shape[1]
+    assert out.shape == ref.shape and out.stride(0) == -(-C // 4) * 4
+    tol = 1e-4 * float(ref.abs().max())
+    torch.testing.assert_close(out, ref, rtol=0, atol=tol)
+
+
 @pytest.mark.parametrize('C', [1, 3, 7, 9, 16])
 def test_row_gather_kernel_is_exact(dev, C):
     from ch_shrinkwrap_torch.ops import cuda_gather
@@ -116,6 +189,34 @@ def test_row_gather_kernel_is_exact(dev, C):
     torch.cuda.synchronize()
     assert cuda_gather.row_gather.launches == n0 + 1
     assert torch.equal(out, cuda_gather.row_gather_plain(src, idx))
+
+
+@pytest.mark.parametrize('K,C', [(8, 7), (5, 7), (8, 3), (16, 16)])
+def test_row_group_sum_kernel_exact_order(dev, K, C):
+    """The fused group sum adds a row's K source rows in the order
+    k = 0..K-1: equal, bit for bit, to that sequential f32 sum (masked
+    slots and indices outside [0, V) add nothing), and exactly equal to
+    the plain version on integer-valued rows, whose sums are exact in
+    any order."""
+    from ch_shrinkwrap_torch.ops import cuda_gather
+    g = torch.Generator(device=dev).manual_seed(K * 100 + C)
+    V, R = 40_000, 100_003
+    src = torch.randn((V, C), generator=g, device=dev)
+    idx = torch.randint(-3, V + 3, (R * K,), generator=g, device=dev,
+                        dtype=torch.int32)
+    care = torch.rand((R, K), generator=g, device=dev) < 0.8
+    n0 = cuda_gather.row_group_sum.launches
+    out = cuda_gather.row_group_sum(src, idx, care)
+    torch.cuda.synchronize()
+    assert cuda_gather.row_group_sum.launches == n0 + 1
+    rows = cuda_gather.row_gather_plain(src, idx).reshape(R, K, C)
+    seq = torch.zeros((R, C), device=dev)
+    for k in range(K):
+        seq = torch.where(care[:, k, None], seq + rows[:, k], seq)
+    assert torch.equal(out, seq)
+    ints = torch.randint(-50, 50, (V, C), generator=g, device=dev).float()
+    assert torch.equal(cuda_gather.row_group_sum(ints, idx, care),
+                       cuda_gather.row_group_sum_plain(ints, idx, care))
 
 
 def test_fit_on_the_card_launches_every_kernel(dev):
@@ -132,7 +233,7 @@ def test_fit_on_the_card_launches_every_kernel(dev):
     m.corr_method = 'windowed'
     m.ring_gather_min_verts = 0
     kernels = (cuda_window.window_min, cuda_scatter.windowed_scatter,
-               cuda_gather.row_gather)
+               cuda_gather.row_gather, cuda_gather.row_group_sum)
     before = [k.launches for k in kernels]
     m.shrink_wrap(pts, 3.0, max_iter=10, minimum_edge_length=4.0)
     assert all(k.launches > b for k, b in zip(kernels, before))

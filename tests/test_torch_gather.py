@@ -1,10 +1,13 @@
-"""PyTorch port, K3's plain version (row gather) and the index streams
-the fit feeds it, held to the JAX package exactly.
+"""PyTorch port, K3's plain versions (row gather, and the fold's fused
+gather + masked group sum) and the index streams the fit feeds them,
+held to the JAX package.
 
 The JAX suite checks its sliding-ring gather against a plain
 ``src[idx]`` (tests/test_ring_gather.py:22); K3 reads the index stream
-directly, so its plain version must equal ``src[idx]`` bit for bit.
-K3's kernel (``csrc/gather.cu``) runs only on a CUDA card.
+directly, so its plain version must equal ``src[idx]`` bit for bit.  The
+fold is held to the JAX package's ``segment_sum`` fold within the
+accumulation bound 1e-4 * max|ref|.  K3's kernels (``csrc/gather.cu``)
+run only on a CUDA card.
 """
 
 import numpy as np
@@ -56,6 +59,37 @@ def test_row_gather_rejects_bad_input():
                                idx)
     with pytest.raises(ValueError):
         cuda_gather.row_gather(torch.zeros((4, 3)), idx.reshape(2, 2))
+
+
+def test_row_group_sum_plain_semantics():
+    """out[v] = sum_k care[v, k] * src[idx[v K + k]], summed over k in
+    order; masked slots and indices outside [0, V) add nothing."""
+    rng = np.random.default_rng(3)
+    V, R, K, C = 50, 40, 8, 7
+    src = rng.normal(size=(V, C)).astype(np.float32)
+    idx = rng.integers(-3, V + 3, R * K).astype(np.int32)
+    care = rng.random((R, K)) < 0.7
+    out = cuda_gather.row_group_sum(torch.from_numpy(src),
+                                    torch.from_numpy(idx),
+                                    torch.from_numpy(care)).numpy()
+    ref = np.zeros((R, C), np.float32)
+    ii = idx.reshape(R, K)
+    for k in range(K):
+        ok = care[:, k] & (ii[:, k] >= 0) & (ii[:, k] < V)
+        ref[ok] += src[ii[ok, k]]
+    np.testing.assert_allclose(out, ref, rtol=1e-6, atol=1e-6)
+    with pytest.raises(ValueError):       # care must be bool (R, K)
+        cuda_gather.row_group_sum(torch.from_numpy(src),
+                                  torch.from_numpy(idx),
+                                  torch.from_numpy(care).float())
+    with pytest.raises(ValueError):       # idx and care disagree
+        cuda_gather.row_group_sum(torch.from_numpy(src),
+                                  torch.from_numpy(idx[:-1]),
+                                  torch.from_numpy(care))
+    with pytest.raises(ValueError):       # at most 16 rows a group
+        cuda_gather.row_group_sum(
+            torch.from_numpy(src), torch.zeros(R * 17, dtype=torch.int32),
+            torch.ones((R, 17), dtype=torch.bool))
 
 
 @pytest.fixture(scope='module')
@@ -122,5 +156,15 @@ def test_fold_by_gather_matches_segment_sum(padded, valence_cap):
                                          num_segments=Vp))
     out = _fold(torch.from_numpy(fused), ta.faces, Vp, g).numpy()
     np.testing.assert_allclose(out, ref, rtol=1e-5, atol=1e-5)
+    # the fused group sum alone, plus the overflow rows, is the fold
+    # (K3f's plain version; the fit's tolerance, 1e-4 * max|ref|)
+    gs = cuda_gather.row_group_sum_plain(torch.from_numpy(fused),
+                                         g.fold_idx, g.fold_care)
+    assert cuda_gather.row_group_sum.launches == 0
+    if g.fold_ov is not None:
+        gs = gs.index_add(0, g.fold_ov[1],
+                          torch.from_numpy(fused)[g.fold_ov[0]])
+    np.testing.assert_allclose(gs.numpy(), ref, rtol=0,
+                               atol=1e-4 * np.abs(ref).max())
     plain = _fold(torch.from_numpy(fused), ta.faces, Vp, None).numpy()
     np.testing.assert_allclose(plain, ref, rtol=1e-5, atol=1e-5)

@@ -83,18 +83,25 @@ def jax_refs(routing):
     return {'ahw2': _jax_ahw2(r, r['fid']), 'given': np.asarray(given)}
 
 
-def _port(mode, r, fid):
+def _port(mode, r, fid, row_strides=None):
+    """The mode's public wrapper on the routing data; its outputs' row
+    strides are appended to ``row_strides`` when given."""
     kw = dict(num_segments=r['Fp'], window=W)
     args = (t(fid), t(r['js']), t(r['starts']), t(r['sub_ids']))
     if mode == 'ah':
-        return cuda_scatter.windowed_ah(t(r['w']), t(r['res']), *args, **kw)
-    if mode == 'ahw2':
-        return torch.cat(cuda_scatter.windowed_ahw2(
-            t(r['w']), t(r['res']), *args, **kw), 1)
-    if mode == 'w2':
-        return cuda_scatter.windowed_w2(t(r['w']), *args, **kw)
-    return cuda_scatter.windowed_segment_sum_cuda(t(r['vals']), *args,
-                                                  **kw)
+        outs = [cuda_scatter.windowed_ah(t(r['w']), t(r['res']), *args,
+                                         **kw)]
+    elif mode == 'ahw2':
+        outs = list(cuda_scatter.windowed_ahw2(t(r['w']), t(r['res']),
+                                               *args, **kw))
+    elif mode == 'w2':
+        outs = [cuda_scatter.windowed_w2(t(r['w']), *args, **kw)]
+    else:
+        outs = [cuda_scatter.windowed_segment_sum_cuda(t(r['vals']), *args,
+                                                       **kw)]
+    if row_strides is not None:
+        row_strides += [o.stride() for o in outs]
+    return torch.cat(outs, 1)
 
 
 _REF_COLS = {'ah': ('ahw2', slice(0, 12)), 'ahw2': ('ahw2', slice(0, 18)),
@@ -106,8 +113,13 @@ def test_windowed_scatter_plain_matches_pallas_interpret(routing, jax_refs,
                                                          mode):
     key, cols = _REF_COLS[mode]
     ref = jax_refs[key][:, cols]
-    out = _port(mode, routing, routing['fid'])
+    strides = []
+    out = _port(mode, routing, routing['fid'], strides)
     assert out.shape == ref.shape
+    # the output table's rows are padded to a multiple of 4 columns (the
+    # kernel adds them with 16-byte atomics); callers get column views
+    C4 = {'ah': 12, 'ahw2': 20, 'w2': 8, 'given': 12}[mode]
+    assert strides == [(C4, 1)] * (2 if mode == 'ahw2' else 1)
     np.testing.assert_allclose(out.numpy(), ref, rtol=0,
                                atol=1e-4 * np.abs(ref).max())
     assert cuda_scatter.windowed_scatter.launches == 0   # CPU -> plain
