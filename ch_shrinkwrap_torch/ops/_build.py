@@ -124,6 +124,8 @@ def _declare(L):
         vp, vp, vp,                         # d2, fid, js
         vp]                                 # stream
     L.csw_window_min.restype = i32
+    L.csw_window_schedule.argtypes = [vp, vp, vp]  # tile, group_span, chunk
+    L.csw_window_schedule.restype = None
     L.csw_windowed_scatter.argtypes = [
         vp, vp, vp, vp, vp, vp, vp,         # w, res, vals, fid, js, starts, sub_ids
         i32, i32, i32, i32, i32, i32,       # N, B, A, W, smax, nsub

@@ -24,6 +24,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..utils.math import fma_f32
 from .ordering import _subsample_ids
 from . import cuda_window
 from .cuda_scatter import route
@@ -35,14 +36,11 @@ BIG = 3.4e38
 def sumsq3(v):
     """|v|^2 of (..., 3) f32 rows, rounded as the JAX package's jitted
     ``(v * v).sum(-1)`` rounds it: XLA forms the FMA chain
-    ``fma(z, z, fma(y, y, x * x))``.  Each FMA is emulated in float64,
-    where the product of two f32 values is exact, then rounded to f32,
-    so the result does not depend on how torch orders or fuses a sum
-    on either device."""
+    ``fma(z, z, fma(y, y, x * x))``, here with :func:`fma_f32` (one
+    rounding per FMA), so the result does not depend on how torch
+    orders or fuses a sum on either device."""
     x, y, z = v.unbind(-1)
-    s = x * x
-    s = (y.double() * y.double() + s.double()).float()
-    return (z.double() * z.double() + s.double()).float()
+    return fma_f32(z, z, fma_f32(y, y, x * x))
 
 
 def _masked_c2(centers, f_mask):
@@ -50,10 +48,21 @@ def _masked_c2(centers, f_mask):
                        torch.full_like(centers[:, 0], BIG))
 
 
+def _dot3(p, c):
+    """(n, m) dot products of (n, 3) and (m, 3) f32 rows, in the order
+    of XLA's K = 3 dot, ``fma(z, Z, fma(y, Y, x * X))``."""
+    (x, y, z), (X, Y, Z) = p.T[:, :, None], c.T[:, None, :]
+    return fma_f32(z, Z, fma_f32(y, Y, x * X))
+
+
 def nearest_face_bruteforce(points, centers, f_mask, face_chunk=4096,
-                            point_block=8192):
+                            point_block=1024):
     """Exact nearest valid face centre for each point: (dist (N,),
-    idx (N,) int32).  Ties go to the lowest face id."""
+    idx (N,) int32).  Ties go to the lowest face id.  The squared
+    distances are rounded as the JAX package's jitted ones are (XLA's
+    FMA chains, through :func:`sumsq3` and :func:`_dot3`), so the ids
+    agree with it even on near-ties; the float64 temporaries of
+    :func:`fma_f32` are why the point blocks are small."""
     N = points.shape[0]
     Fp = centers.shape[0]
     c2 = _masked_c2(centers, f_mask)
@@ -61,14 +70,14 @@ def nearest_face_bruteforce(points, centers, f_mask, face_chunk=4096,
     i_out = torch.empty((N,), dtype=torch.int32, device=points.device)
     for p0 in range(0, N, point_block):
         pb = points[p0:p0 + point_block]
-        p2 = (pb * pb).sum(-1)
+        p2 = sumsq3(pb)
         best_d2 = torch.full_like(p2, BIG)
         best_i = torch.zeros(p2.shape, dtype=torch.int64,
                              device=points.device)
         for f0 in range(0, Fp, face_chunk):
             cc = centers[f0:f0 + face_chunk]
             d2 = p2[:, None] + c2[None, f0:f0 + face_chunk] \
-                - 2.0 * (pb @ cc.T)
+                - 2.0 * _dot3(pb, cc)
             dmin, j = torch.min(d2, dim=1)
             upd = dmin < best_d2
             best_d2 = torch.where(upd, dmin, best_d2)

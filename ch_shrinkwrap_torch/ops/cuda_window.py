@@ -5,14 +5,27 @@
 of ``|c|^2 - 2 p.c`` over the concatenation of the block's A windows of
 W Hilbert-ordered face centres and the shared face subsample.  On a CUDA
 tensor it launches ``csrc/window.cu``; on a CPU tensor it runs
-``window_min_plain``, which computes the same function with torch ops in
-the same arithmetic order (so the two agree bit for bit on one device).
+``window_min_plain``.
+
+Both follow the arithmetic of the JAX reference: XLA forms the K = 3
+``dot_general`` as the FMA chain ``fma(z, Z, fma(y, Y, x * X))`` and
+then ``c2 - 2 * dot``.  The face table is stored pre-scaled as
+``(-2x, -2y, -2z, c2)``; scaling by -2 commutes exactly with rounding,
+so ``c2 + fma(z, -2Z, fma(y, -2Y, x * -2X))`` is bit-equal to the
+reference's distance and costs the kernel four fp32 instructions a
+candidate.  The plain version forms the same FMAs with
+:func:`~ch_shrinkwrap_torch.utils.math.fma_f32`, so kernel, plain
+version and the JAX package agree bit for bit, and a near-tie argmin
+cannot flip between them.
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
+from ..utils.math import fma_f32
 from . import _build
 
 BIG = 3.4e38
@@ -25,8 +38,8 @@ CORR_A = 3
 def _pack(starts, centers_t, c2, sub_ids, window):
     """Kernel-ready inputs shared by the kernel and its plain version:
     starts rounded down to 128 and clamped to the 128-aligned table,
-    the (Fp_al, 4) [x, y, z, c2] face table padded with c2 = BIG, and
-    the (nsub, 4) subsample rows."""
+    the (Fp_al, 4) [-2x, -2y, -2z, c2] face table padded with
+    (0, 0, 0, BIG), and the (nsub, 4) subsample rows."""
     Fp = centers_t.shape[1]
     Fp_al = -(-Fp // 128) * 128
     if window > Fp_al:
@@ -36,7 +49,7 @@ def _pack(starts, centers_t, c2, sub_ids, window):
                             max(Fp_al - window, 0)).int().contiguous()
     cand4 = torch.zeros((Fp_al, 4), dtype=torch.float32,
                         device=centers_t.device)
-    cand4[:Fp, :3] = centers_t.T
+    cand4[:Fp, :3] = centers_t.T * -2.0
     cand4[:Fp, 3] = c2
     cand4[Fp:, 3] = BIG
     sub_ids = sub_ids.int().contiguous()
@@ -81,8 +94,6 @@ def window_min(blocks_t, starts, centers_t, c2, sub_ids, window=CORR_W,
     starts_al, cand4, sub4, sub_i = _pack(starts, centers_t, c2, sub_ids,
                                           window)
     nb, _, B = blocks_t.shape
-    if B > 1024:
-        raise ValueError('block size above 1024 threads')
     pts = blocks_t.contiguous()
     _build.require_cuda(pts, starts_al, cand4, sub4, sub_i)
     d2 = torch.empty((nb, B), dtype=torch.float32, device=pts.device)
@@ -102,11 +113,23 @@ def window_min(blocks_t, starts, centers_t, c2, sub_ids, window=CORR_W,
 window_min.launches = 0
 
 
+def schedule():
+    """The kernel's seams, as the built ``csrc/window.cu`` reports them:
+    ``(tile, group_span, chunk)``, the candidates staged at a time, a
+    thread group's span of a tile, and the candidates of one chunk of
+    the argmin.  The tie tests place ties on them.  Needs the kernel
+    library, so the CUDA toolkit."""
+    out = [ctypes.c_int() for _ in range(3)]
+    _build.lib().csw_window_schedule(*(ctypes.byref(v) for v in out))
+    return tuple(v.value for v in out)
+
+
 def window_min_plain(blocks_t, starts, centers_t, c2, sub_ids,
                      window=CORR_W, n_anchors=CORR_A, block_chunk=None):
     """Plain PyTorch version of :func:`window_min`: a loop over chunks
     of point blocks, the candidate distances formed with the kernel's
-    arithmetic order, and ``torch.argmin`` (first index on ties)."""
+    FMA chain (:func:`fma_f32`, float64 temporaries, hence the chunks),
+    and ``torch.argmin`` (first index on ties)."""
     _check(blocks_t, starts, centers_t, c2, sub_ids, n_anchors)
     starts_al, cand4, sub4, sub_i = _pack(starts, centers_t, c2, sub_ids,
                                           window)
@@ -130,10 +153,7 @@ def window_min_plain(blocks_t, starts, centers_t, c2, sub_ids,
         p = blocks_t[b0:b1]                                # (bc, 3, B)
         px, py, pz = (p[:, k, :, None] for k in range(3))  # (bc, B, 1)
         cx, cy, cz, cc2 = (cand[:, None, :, k] for k in range(4))
-        dot = px * cx
-        dot = dot + py * cy
-        dot = dot + pz * cz
-        d = cc2 - 2.0 * dot                                # (bc, B, n)
+        d = cc2 + fma_f32(pz, cz, fma_f32(py, cy, px * cx))  # (bc, B, n)
         j = torch.argmin(d, dim=2)                         # (bc, B)
         d_out[b0:b1] = torch.gather(d, 2, j[..., None])[..., 0]
         a = torch.clamp(j // W, max=A - 1)

@@ -12,7 +12,8 @@ so two versions are read on the same footing.  To compare a change with
 its parent on one card, give them in turns: parent, change, change,
 parent.  ``--k1-dump DIR`` also writes, for each point where K1's kernel
 and its plain version pick different faces, the point and its whole
-candidate list to ``DIR/k1_disagree_<i>.npz``.
+candidate list (rows of the pre-scaled table, -2x, -2y, -2z, c2) to
+``DIR/k1_disagree_<i>.npz``.
 
 Prints the card's name and power limit, then one JSON line per ROOT.
 Needs one CUDA device.

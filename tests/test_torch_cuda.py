@@ -71,19 +71,53 @@ def test_window_min_kernel_matches_plain(problem):
     assert cuda_window.window_min.launches == n0 + 1
     d2p, fp, jp = cuda_window.window_min_plain(*args)
     # the kernel repeats the plain version's fp32 arithmetic exactly
-    assert float((fk == fp).float().mean()) >= 0.9999
-    assert float((jk == jp).float().mean()) >= 0.9999
-    torch.testing.assert_close(d2k, d2p, rtol=0, atol=0)
+    assert torch.equal(fk, fp) and torch.equal(jk, jp)
+    assert torch.equal(d2k.view(torch.int32), d2p.view(torch.int32))
+
+
+@pytest.mark.parametrize('W,nsub,nb,B', [(256, 64, 1, 256),
+                                         (1024, 64, 3, 256),
+                                         (1004, 60, 2, 256),
+                                         (2048, 1024, 1, 100),
+                                         (512, 64, 2, 300)])
+def test_window_min_kernel_shapes(dev, W, nsub, nb, B):
+    """Bit-equal to the plain version, on the card and on the CPU,
+    where W and nsub are no multiples of the staging tile or the chunk,
+    for one block, and for blocks of fewer or more than one CUDA
+    block's 256 points."""
+    from ch_shrinkwrap_torch.ops import correspondence as corr
+    from ch_shrinkwrap_torch.ops import cuda_window
+    rng = np.random.default_rng(W + nsub + nb + B)
+    Fp = 4 * max(W, 1024)
+    cen = (rng.normal(size=(3, Fp)) * 500.0).astype(np.float32)
+    pts = (rng.normal(size=(nb, 3, B)) * 500.0).astype(np.float32)
+    starts = rng.integers(0, Fp - W + 1, (nb, 3)).astype(np.int32)
+    c2 = corr.sumsq3(torch.from_numpy(cen.T.copy())).to(dev)
+    args = (torch.from_numpy(pts).to(dev), torch.from_numpy(starts).to(dev),
+            torch.from_numpy(cen).to(dev), c2,
+            corr.subsample_ids(Fp, nsub, dev), W, 3)
+    out_k = cuda_window.window_min(*args)
+    out_p = cuda_window.window_min_plain(*args)
+    out_c = cuda_window.window_min_plain(
+        *(a.cpu() if torch.is_tensor(a) else a for a in args))
+    for a_, b_, c_ in zip(out_k, out_p, out_c):
+        assert torch.equal(a_.view(torch.int32), b_.view(torch.int32))
+        assert torch.equal(a_.cpu().view(torch.int32), c_.view(torch.int32))
 
 
 def test_window_min_ties_take_first_index(dev):
     """Exact ties go to the first minimum in concatenation order in the
-    kernel and in its plain version on the card; on an integer lattice,
-    where ties are everywhere, kernel, plain version on the card and
-    plain version on the CPU agree on every output."""
-    from chip_smoke import k1_lattice_case, k1_tie_cases
+    kernel and in its plain version on the card, also where the two
+    tied faces straddle a chunk, two thread groups' spans or a staging
+    tile of the kernel's schedule; on an integer lattice, where ties are
+    everywhere, kernel, plain version on the card and plain version on
+    the CPU agree on every output."""
+    from chip_smoke import k1_boundary_cases, k1_lattice_case, \
+        k1_tie_cases
     from ch_shrinkwrap_torch.ops import cuda_window
-    for name, args, fid, js in k1_tie_cases(dev):
+    for name, args, fid, js in (
+            *k1_tie_cases(dev),
+            *k1_boundary_cases(dev, cuda_window.schedule())):
         for fn in (cuda_window.window_min, cuda_window.window_min_plain):
             _, f_, j_ = fn(*args)
             assert bool((f_ == fid).all()) and bool((j_ == js).all()), \
