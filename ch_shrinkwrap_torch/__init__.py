@@ -12,7 +12,13 @@ counterpart is easy to find:
                 ``cuda_scatter``, ``cuda_gather``; sources in ``csrc/``,
                 built by ``ops/_build.py``).
 - ``solver``  — the conjugate-gradient block ``cg_block``.
-- ``models``  — ``MembraneMesh`` and its ``shrink_wrap`` fit.
+- ``models``  — ``MembraneMesh`` and its ``shrink_wrap`` fit, with the
+                topology surgery between CG blocks: neck removal,
+                hole punching (``holepunch``; the SDF variant in
+                ``holepunch_sdf``) and the Delaunay remesh.
+- ``sim``     — signed-distance primitives (``sdf``).
+- ``eval``    — ``delaunay_utils``, the Delaunay hull surface that
+                ``MembraneMesh.delaunay_remesh`` rebuilds from.
 - ``convert`` — carries fit state from numpy into the port's tensors.
 
 Entry points run on ``cuda`` unless the caller passes

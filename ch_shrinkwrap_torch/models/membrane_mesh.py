@@ -2,15 +2,15 @@
 
 Counterpart of the JAX package's ``models/membrane_mesh.py`` (itself a
 rebuild of the reference's Cython ``MembraneMesh``,
-ch_shrinkwrap/_membrane_mesh.pyx:78-1681), limited to the fit with
-remeshing: the host object owns the compact mesh and the fit schedule;
-every CG block (``remesh_frequency`` iterations) runs ``cg_block`` on the
-mesh's torch device; between blocks the host runs short-edge cleanup and
-the native remesh on the edge-length schedule, then re-pads the arrays.
+ch_shrinkwrap/_membrane_mesh.pyx:78-1681): the host object owns the
+compact mesh and the fit schedule; every CG block (to the next remesh or
+punch boundary) runs ``cg_block`` on the mesh's torch device; between
+blocks the host runs the topology surgery (hole punching, Gaussian-
+curvature neck removal, short-edge cleanup) and the native remesh on
+the edge-length schedule, then re-pads the arrays.  ``delaunay_remesh``
+rebuilds the surface from the Delaunay hull of the vertices.
 
-Not ported yet (they raise ``NotImplementedError``): neck removal
-(``neck_first_iter > 0``), hole punching / Delaunay remeshing
-(``delaunay_remesh_frequency <= max_iter``), the shrink prior
+Not ported yet (they raise ``NotImplementedError``): the shrink prior
 (``shrink_weight > 0``), multi-device fits, and capacity modes other
 than ``'final'``.
 """
@@ -18,6 +18,7 @@ than ``'final'``.
 from __future__ import annotations
 
 import logging
+import math
 import time
 
 import numpy as np
@@ -75,12 +76,20 @@ class MembraneMesh(TriangleMesh):
         self.neck_threshold_low = -1e-4
         self.neck_threshold_high = 1e-2
         self.neck_first_iter = -1
+        # low-side neck criterion: 'threshold' (the reference's) or
+        # 'separator' (connected negative-K patches that disconnect the
+        # surface, see remove_necks); the separator's candidate bound,
+        # per-patch median-K bound and constriction ratio
+        self.neck_detector = 'threshold'
+        self.neck_separator_threshold = -1e-5
+        self.neck_separator_median = -2e-4
+        self.neck_separator_constriction = 0.9
         self.remesh_collapse_veto = False
         self.remesh_collapse_veto_cos = 0.5
         self.shrink_weight = 0.0
         self.truncate_at = 2 ** 31
-        # skip the internal remesh of the boundary short-edge cleanup:
-        # the scheduled remesh follows at the same boundary
+        # skip the internal remesh of the boundary surgeries (necks,
+        # short edges): the scheduled remesh follows at the same boundary
         self.defer_boundary_remesh = True
 
         # capacity quantum of the padded arrays; 'final' pads every
@@ -307,6 +316,208 @@ class MembraneMesh(TriangleMesh):
                        l=l, n_relax=n_relax, collapse_veto_cos=veto)
         self._initialize_curvature_vectors()
 
+    # ------------------------------------------------------------------
+    # topology surgery: necks, holes, Delaunay remesh
+
+    def _separator_neck_vertices(self, K, t_cand, t_median,
+                                 constriction=0.9,
+                                 min_piece=16, max_comp_frac=0.05):
+        """Negative-K neck vertices by separation: candidates (K <
+        ``t_cand``) are grouped into connected patches, and a patch is
+        a neck when it borders >= 2 sizable components of the rest of
+        the surface (removing it disconnects the mesh), its median K
+        clears ``t_median`` (a waist is negatively curved around its
+        whole ring; a chain of noise saddles hugs the threshold) and it
+        constricts: its ring radius over the adjacent surface's radius
+        on both sides is below ``constriction``.  ``max_comp_frac``
+        rejects percolating candidate networks."""
+        import scipy.sparse as sp
+        from scipy.sparse.csgraph import connected_components
+
+        V = self.vertices.shape[0]
+        cand = K < t_cand
+        n_cand = int(cand.sum())
+        if n_cand == 0 or n_cand == V:
+            return np.zeros(0, np.int64)
+        he = self.halfedges
+        ok = (he.src >= 0) & (he.vertex >= 0)
+        src = he.src[ok].astype(np.int64)
+        dst = he.vertex[ok].astype(np.int64)
+
+        def comps(edge_mask):
+            g = sp.coo_matrix(
+                (np.ones(int(edge_mask.sum()), np.int8),
+                 (src[edge_mask], dst[edge_mask])), shape=(V, V))
+            return connected_components(g, directed=False)
+
+        # components of the surface minus the candidates, and of the
+        # candidate-induced subgraph
+        _, lab_rest = comps(~cand[src] & ~cand[dst])
+        n_k, lab_cand = comps(cand[src] & cand[dst])
+
+        rest_sizes = np.bincount(lab_rest[~cand], minlength=V)
+        cand_sizes = np.bincount(lab_cand[cand], minlength=n_k)
+
+        # border edges candidate -> rest: distinct sizable rest
+        # components adjacent to each candidate patch
+        border = cand[src] & ~cand[dst]
+        bk = lab_cand[src[border]]
+        br = lab_rest[dst[border]]
+        sizable = rest_sizes[br] >= min_piece
+        pairs = np.unique(bk[sizable].astype(np.int64) * V
+                          + br[sizable])
+        touch_counts = np.bincount((pairs // V).astype(np.int64),
+                                   minlength=n_k)
+
+        size_cap = max(512, int(max_comp_frac * V))
+        sep = (touch_counts >= 2) & (cand_sizes <= size_cap)
+        if not sep.any():
+            return np.zeros(0, np.int64)
+        adj = {}
+        for k_l, r_l in zip(bk[sizable], br[sizable]):
+            adj.setdefault(int(k_l), set()).add(int(r_l))
+
+        def _constriction_ratio(pmask, sid):
+            """Ring radius of the patch over the radius of each adjacent
+            surface piece near it; axis = the patch's least-variance
+            direction (the ring plane's normal).  The worse side counts;
+            with fewer than two measurable sides, inf."""
+            P = self.vertices[pmask]
+            c = P.mean(0)
+            D = P - c
+            try:
+                _, _, vt = np.linalg.svd(D, full_matrices=False)
+            except np.linalg.LinAlgError:
+                return np.inf
+            axis = vt[-1]
+            ax = D @ axis
+            r_patch = float(np.linalg.norm(
+                D - ax[:, None] * axis[None], axis=1).mean())
+            if not np.isfinite(r_patch) or r_patch <= 0:
+                return np.inf
+            ratios = []
+            for r_l in adj.get(sid, ()):
+                Q = self.vertices[~cand & (lab_rest == r_l)] - c
+                qax = Q @ axis
+                band = np.abs(qax) < 3.0 * r_patch
+                if band.sum() < 8:
+                    continue
+                Qb = Q[band]
+                r_side = float(np.linalg.norm(
+                    Qb - (Qb @ axis)[:, None] * axis[None],
+                    axis=1).mean())
+                if r_side > 0:
+                    ratios.append(r_patch / r_side)
+            return max(ratios) if len(ratios) >= 2 else np.inf
+
+        keep = []
+        for sid in np.flatnonzero(sep):
+            pmask = cand & (lab_cand == sid)
+            kk = K[pmask]
+            med_ok = len(kk) and float(np.median(kk)) < t_median
+            ratio = _constriction_ratio(pmask, int(sid)) if med_ok \
+                else np.inf
+            ok = med_ok and ratio < constriction
+            logger.debug('separator patch %d: %d verts, medK %.2e, '
+                         'touches %d, constriction %.2f -> %s', sid,
+                         int(pmask.sum()), float(np.median(kk)),
+                         int(touch_counts[sid]), ratio,
+                         'cut' if ok else 'reject')
+            if ok:
+                keep.append(sid)
+        if not keep:
+            return np.zeros(0, np.int64)
+        sel = np.zeros(n_k, bool)
+        sel[np.asarray(keep)] = True
+        return np.flatnonzero(cand & sel[lab_cand])
+
+    def remove_necks(self, neck_curvature_threshold_low=-1e-4,
+                     neck_curvature_threshold_high=1e-2,
+                     defer_remesh=False):
+        """Sever necks flagged by extreme Gaussian curvature
+        (pyx:1201-1219): delete the flagged vertices, repair the holes,
+        remesh (unless ``defer_remesh``: the fit's scheduled remesh
+        follows at the same boundary), drop severed inner fragments.
+
+        ``self.neck_detector`` picks the low-side criterion:
+        ``'threshold'`` (the reference's: every vertex below the low
+        threshold) or ``'separator'`` (:meth:`_separator_neck_vertices`
+        at ``self.neck_separator_threshold``).  The high side (spikes)
+        is a threshold in both.  When more than a quarter of the
+        vertices trip a threshold detector they flag wrinkle noise, not
+        necks, and nothing is removed (the reference removes them
+        unconditionally).  Returns ``(flagged, removed)`` vertex
+        counts."""
+        t0 = time.time()
+        K = self.curvature_gaussian
+        t_curv = time.time() - t0
+        V = self.vertices.shape[0]
+        if self.neck_detector == 'separator':
+            low = self._separator_neck_vertices(
+                K, float(self.neck_separator_threshold),
+                float(self.neck_separator_median),
+                float(self.neck_separator_constriction))
+            high = np.flatnonzero(K > neck_curvature_threshold_high)
+            n_flagged = len(low) + len(high)
+            # separator patches are connectivity-proven and bypass the
+            # safety valve; the spike flags keep it
+            if len(high) > 0.25 * V:
+                high = high[:0]
+            verts = np.union1d(low, high)
+        else:
+            verts = np.flatnonzero((K < neck_curvature_threshold_low)
+                                   | (K > neck_curvature_threshold_high))
+            n_flagged = len(verts)
+            if len(verts) > 0.25 * V:
+                logger.warning(
+                    'remove_necks: %d/%d vertices exceed the curvature '
+                    'thresholds (wrinkle noise, not necks) - skipping; '
+                    'widen neck_threshold_low/high for this dataset',
+                    len(verts), V)
+                return n_flagged, 0
+        if len(verts) == 0:
+            logger.info('remove_necks[%s]: 0 verts flagged (curv %.2fs)',
+                        self.neck_detector, t_curv)
+            return n_flagged, 0
+        t1 = time.time()
+        self.unsafe_remove_vertices(verts)
+        self.repair()
+        t2 = time.time()
+        if not defer_remesh:
+            self.remesh(n_relax=0)
+        t3 = time.time()
+        self.remove_inner_surfaces()
+        logger.info('remove_necks[%s]: %d verts - curv %.2fs, '
+                    'remove+repair %.2fs, remesh %.2fs, inner %.2fs',
+                    self.neck_detector, len(verts), t_curv, t2 - t1,
+                    t3 - t2, time.time() - t3)
+        return n_flagged, int(len(verts))
+
+    def punch_holes(self, pts, eps=10.0):
+        """Fenestrate the mesh between opposing unsupported face pairs
+        (pyx:1163-1199); see ``models.holepunch`` for the passes.
+        Returns the number of tunnels punched."""
+        from . import holepunch
+        n = holepunch.punch_holes(self, pts, eps=eps)
+        self._initialize_curvature_vectors()
+        return n
+
+    def delaunay_remesh(self, points, eps=1.0):
+        """Rebuild the surface from the Delaunay outer hull of the
+        current vertices (pyx:612-641)."""
+        import scipy.spatial
+        from ..eval import delaunay_utils
+        v = self.vertices.astype(np.float64)
+        d = scipy.spatial.Delaunay(v)
+        tri = delaunay_utils.orient_simps(d, v)
+        ext_inds = delaunay_utils.greedy_ext_simps(tri, self)
+        simps = delaunay_utils.del_simps(tri, ext_inds)
+        faces = delaunay_utils.surf_from_delaunay(simps)
+        old_v, idxs = np.unique(faces.ravel(), return_inverse=True)
+        reindexed = np.arange(len(old_v))[idxs].reshape(faces.shape)
+        self.set_topology(v[old_v], reindexed.astype(np.int32))
+        self._initialize_curvature_vectors()
+
     def remove_extra_short_edges(self, threshold=0.05, defer_remesh=False):
         """Remove vertices on pathologically short edges that topology
         prevented collapsing (pyx:1221-1237), rolled back when the
@@ -349,20 +560,16 @@ class MembraneMesh(TriangleMesh):
 
     def opt_conjugate_gradient(self, points, sigma, max_iter=10,
                                step_size=1.0, weights=None, **kwargs):
-        """Outer fit loop (pyx:1427-1560): CG blocks of ``rf``
-        iterations on the device, short-edge cleanup and remesh between
-        blocks on a linear edge-length schedule."""
+        """Outer fit loop (pyx:1427-1560): CG blocks on the device
+        that run to the next boundary, and between blocks on the host
+        hole punching every ``delaunay_remesh_frequency`` iterations and,
+        every ``remesh_frequency``, neck removal (after
+        ``neck_first_iter``), short-edge cleanup and a remesh on a
+        linear edge-length schedule."""
         r = (self.remesh_frequency != 0) \
             and (self.remesh_frequency <= max_iter)
         dr = ((self.delaunay_remesh_frequency != 0)
               and (self.delaunay_remesh_frequency <= max_iter))
-        if dr:
-            raise NotImplementedError(
-                'hole punching / delaunay remeshing is not ported yet '
-                '(set delaunay_remesh_frequency=0)')
-        if r and self.neck_first_iter > 0:
-            raise NotImplementedError(
-                'neck removal is not ported yet (set neck_first_iter=-1)')
         if self.shrink_weight > 0:
             raise NotImplementedError('the shrink prior is not ported yet')
         if getattr(self, 'device_mesh', None) is not None:
@@ -371,7 +578,17 @@ class MembraneMesh(TriangleMesh):
         if self.capacity_mode != 'final':
             raise NotImplementedError(
                 f'capacity_mode {self.capacity_mode!r} is not ported yet')
-        rf = self.remesh_frequency if r else max_iter
+        # the edge-length schedule's step: with both cadences on, the
+        # reference's block length gcd(remesh, punch) (pyx:1430-1441)
+        if r and dr:
+            rf = math.gcd(self.remesh_frequency,
+                          self.delaunay_remesh_frequency)
+        elif r:
+            rf = self.remesh_frequency
+        elif dr:
+            rf = self.delaunay_remesh_frequency
+        else:
+            rf = max_iter
 
         if r:
             initial_length = self._mean_edge_length
@@ -443,7 +660,12 @@ class MembraneMesh(TriangleMesh):
         self._final_caps_pred = (v_cap, f_cap) if v_cap is not None \
             else None
 
-        ni_static = min(n_iter, self.remesh_frequency) if r else n_iter
+        # block length: up to the next boundary of either cadence
+        ni_static = n_iter
+        if r:
+            ni_static = min(ni_static, self.remesh_frequency)
+        if dr:
+            ni_static = min(ni_static, self.delaunay_remesh_frequency)
 
         if method == 'windowed':
             order = fit_point_order(points)
@@ -470,12 +692,18 @@ class MembraneMesh(TriangleMesh):
             if r:
                 n_it = min(n_it, self.remesh_frequency
                            - (j % self.remesh_frequency))
+            if dr:
+                n_it = min(n_it, self.delaunay_remesh_frequency
+                           - (j % self.delaunay_remesh_frequency))
             n_it = int(n_it)
 
             t0 = time.time()
+            # host seconds of the topology rebuild, by step, for the trace
+            prep = {}
             if topo_dirty or state is None:
                 # index locality for the device gathers and scatters
                 self.spatial_sort()
+                prep['sort_s'] = time.time() - t0
                 if v_cap is not None and (self.vertices.shape[0] > v_cap
                                           or self.faces.shape[0] > f_cap):
                     # remesh overshot the prediction; grow the capacity
@@ -485,18 +713,23 @@ class MembraneMesh(TriangleMesh):
                     f_cap = meshdata.round_up_bucket(
                         int(1.3 * self.faces.shape[0]), self.pad_quantum)
                 # spatial_sort already Hilbert-ordered the faces
+                t1 = time.time()
                 ma = meshdata.from_mesh(self, v_cap=v_cap, f_cap=f_cap,
                                         quantum=self.pad_quantum,
                                         hilbert_faces=False, device=dev)
+                t2 = time.time()
+                prep['pad_s'] = t2 - t1
                 tables = None
                 if ma.positions.shape[0] > self.ring_gather_min_verts:
                     tables = meshdata.gather_tables(ma)
+                prep['tables_s'] = time.time() - t2
                 state = (ma, tables)
                 positions = ma.positions
             else:
                 ma, tables = state
                 positions = f_dev
 
+            t_block = time.time()
             f_new, diag = block_call(
                 positions, ma.faces, ma.f_mask, ma.v_mask, ma.nbr_v,
                 pts_t, sig_t, w_t, pmask, lam0, 0.0,
@@ -520,17 +753,41 @@ class MembraneMesh(TriangleMesh):
             self.set_positions(new_pos)
             self._initialize_curvature_vectors()
             j += n_it
-            self.trace.record('cg_block', j, time.time() - t0, self,
+            # block_s: the CG block from its call to its positions back
+            # on the host
+            t_end = time.time()
+            self.trace.record('cg_block', j, t_end - t0, self,
                               diag=diag, n_iters=n_it,
-                              v_cap=int(positions.shape[0]))
+                              v_cap=int(positions.shape[0]),
+                              block_s=t_end - t_block, **prep)
             logger.info('cg_block done j=%d/%d (%.1fs, V=%d, cap=%s)',
                         j, n_iter, time.time() - t0,
                         self.vertices.shape[0], v_cap)
 
-            if r and (j % self.remesh_frequency) == 0:
+            # at a shared boundary the punch comes first, then the
+            # necks, the short edges and the remesh (pyx:1534-1546).
+            # The punch gets the fit's one points array at every
+            # boundary: its kNN field is cached on that array.
+            if dr and (j % self.delaunay_remesh_frequency) == 0:
                 t0 = time.time()
-                self.remove_extra_short_edges(
-                    defer_remesh=bool(self.defer_boundary_remesh))
+                n_punched = self.punch_holes(points, self.delaunay_eps)
+                self.trace.record('punch_holes', j, time.time() - t0,
+                                  self, n_punched=n_punched)
+                if n_punched:
+                    topo_dirty = True
+
+            if r and (j % self.remesh_frequency) == 0:
+                defer = bool(self.defer_boundary_remesh)
+                t0 = time.time()
+                if self.neck_first_iter > 0 and j > self.neck_first_iter:
+                    flagged, removed = self.remove_necks(
+                        self.neck_threshold_low, self.neck_threshold_high,
+                        defer_remesh=defer)
+                    self.trace.record('remove_necks', j, time.time() - t0,
+                                      self, necks_flagged=flagged,
+                                      necks_removed=removed)
+                    t0 = time.time()
+                self.remove_extra_short_edges(defer_remesh=defer)
                 self.trace.record('short_edges', j, time.time() - t0, self)
                 t0 = time.time()
                 # clamped to the schedule's endpoints: at j = n_iter

@@ -19,7 +19,7 @@ from typing import List, Optional
 
 @dataclass
 class BlockRecord:
-    kind: str                   # 'cg_block' | 'remesh' | 'short_edges'
+    kind: str                   # 'cg_block' | 'remesh' | 'punch_holes' | ...
     iteration: int              # outer iteration index at block end
     wall_time: float
     n_vertices: int
@@ -70,6 +70,18 @@ class FitTrace:
             by_kind[r.kind][1] += r.wall_time
         return {k: {'count': c, 'seconds': round(s, 3)}
                 for k, (c, s) in by_kind.items()}
+
+    def wall_by_phase(self):
+        """Wall seconds by kind, plus the CG blocks' host rebuild
+        (``sort``, ``pad``, ``tables``) and the blocks' own time
+        (``block``: from the call to the positions back on the host),
+        summed from the cg_block records."""
+        out = {k: v['seconds'] for k, v in self.summary().items()}
+        for key in ('sort_s', 'pad_s', 'tables_s', 'block_s'):
+            out[key[:-2]] = round(sum(r.extra.get(key, 0.0)
+                                      for r in self.records
+                                      if r.kind == 'cg_block'), 3)
+        return out
 
     def dump_jsonl(self, path):
         with open(path, 'w') as fh:

@@ -15,13 +15,24 @@ The fit is then repeated with every kernel replaced by its plain
 version (the two surfaces must agree), and run for 39 iterations (the
 reference recipe's default), which must land within 1.5 nm of R.
 
-Phases run in order (env, build, kernels, cg_block, fit), each under a
-watchdog deadline: a phase that overruns prints its name and elapsed
-time and the process exits non-zero.  Any failed check exits non-zero.
-The second-to-last line is the kernel table as JSON; the last line is
-{"ok": true, "device": {...}}.  Needs one CUDA device; exits non-zero
-without printing a result when there is none.  The cg_block phase also
-prints torch.profiler's table of one CG block (time by kernel).
+Phase fit99 drives the north-star fit on the same cloud and seed: 99
+iterations, remesh every 5, neck removal after iteration 9, hole
+punching every 13, minimum edge 5 nm (scripts/torch_e2e_fit.py's
+defaults).  It must end within 1.5 nm of R with a radial std below
+1 nm, one closed manifold sphere, K1 launched once an iteration and
+K2, K3 and K3f launched; it prints the trace and the wall by phase.
+Phase fit.punch fits an oblate seed to a torus cloud and punches
+inside the loop on the card, and must make the same cuts as the same
+fit on the CPU.
+
+Phases run in order (env, build, kernels, cg_block, fit, fit99,
+fit.punch), each under a watchdog deadline: a phase that overruns
+prints its name and elapsed time and the process exits non-zero.  Any
+failed check exits non-zero.  The second-to-last line is the kernel
+table as JSON; the last line is {"ok": true, "device": {...}}.  Needs
+one CUDA device; exits non-zero without printing a result when there
+is none.  The cg_block phase also prints torch.profiler's table of one
+CG block (time by kernel).
 """
 
 from __future__ import annotations
@@ -36,10 +47,11 @@ import time
 
 import numpy as np
 
-# per-phase deadlines in seconds (the whole run must end well inside
-# 1200 s; the expected total on an H100 is a few minutes)
-DEADLINES = {'env': 60, 'build': 240, 'kernels': 200, 'cg_block': 180,
-             'fit': 480}
+# per-phase deadlines in seconds; they add up to 1080, so the whole
+# run ends inside 1200 s (the expected total on an H100 is a few
+# minutes)
+DEADLINES = {'env': 30, 'build': 180, 'kernels': 150, 'cg_block': 60,
+             'fit': 180, 'fit99': 360, 'punch': 120}
 
 # H100 SXM peaks (NVIDIA data sheet) for the bound column
 HBM_BYTES_PER_S = 3.35e12
@@ -720,6 +732,121 @@ def check_same_fit(fit, ref):
     return dict(dR=d_mean, dstd=d_std, dV=d_v)
 
 
+def phase_fit99(device='cuda', n_points=N_POINTS, radius=RADIUS,
+                grid_n=48, iters=99, punch_frequency=13,
+                neck_first_iter=9, min_edge=5.0):
+    """The north-star fit (scripts/torch_e2e_fit.py's defaults) from
+    the marching seed: remesh every 5, neck removal after
+    ``neck_first_iter`` at -1e-3 / 1e-2, punching every
+    ``punch_frequency`` with a 100 nm minimum hole radius."""
+    import torch
+    from ch_shrinkwrap_torch.mesh.marching import wrap_start
+    from ch_shrinkwrap_torch.models import MembraneMesh
+    pts, sig = sphere_cloud(n_points, radius=radius)
+    t0 = time.time()
+    surf = wrap_start(pts, offset=25.0, grid_n=grid_n)
+    t_seed = time.time() - t0
+    mesh = MembraneMesh(
+        mesh=surf, kc=1.0, step_size=20.0, max_iter=iters,
+        remesh_frequency=5, delaunay_remesh_frequency=punch_frequency,
+        delaunay_eps=100.0, neck_first_iter=neck_first_iter,
+        neck_threshold_low=-1e-3, neck_threshold_high=1e-2,
+        device=device)
+    t1 = time.time()
+    mesh.shrink_wrap(pts, sig, method='conjugate_gradient',
+                     minimum_edge_length=min_edge)
+    if torch.device(device).type == 'cuda':
+        torch.cuda.synchronize()
+    t_fit = time.time() - t1
+    r = np.linalg.norm(mesh.vertices, axis=1)
+    _, n_comp = mesh.connected_components()
+    recs = mesh.trace.records
+    wall = mesh.trace.wall_by_phase()
+    host = t_fit - wall['block']
+    return dict(seed_s=t_seed, fit_s=t_fit,
+                host_s=host, host_share=host / t_fit,
+                V=int(mesh.vertices.shape[0]),
+                R_mean=float(r.mean()), R_std=float(r.std()),
+                euler=int(mesh.euler_characteristic),
+                manifold=bool(mesh.is_manifold), components=int(n_comp),
+                method=mesh._last_corr_method,
+                n_punched=sum(int(rec.extra.get('n_punched', 0))
+                              for rec in recs),
+                necks_removed=sum(int(rec.extra.get('necks_removed', 0))
+                                  for rec in recs),
+                wall=wall,
+                trace=[(rec.kind, rec.iteration, round(rec.wall_time, 3),
+                        rec.n_vertices,
+                        {k: (round(v, 3) if isinstance(v, float) else v)
+                         for k, v in rec.extra.items()})
+                       for rec in recs])
+
+
+def check_fit99(fit, launches, iters=99):
+    check(abs(fit['R_mean'] - RADIUS) < 1.5,
+          f"fit99 |R - {RADIUS}| = {abs(fit['R_mean'] - RADIUS)} >= 1.5")
+    check(fit['R_std'] < 1.0, f"fit99 R std {fit['R_std']} >= 1.0")
+    check(fit['euler'] == 2, f"fit99 euler {fit['euler']}")
+    check(fit['manifold'], 'fit99 mesh not manifold')
+    check(fit['components'] == 1, f"fit99 components {fit['components']}")
+    check(launches['K1'] == iters,
+          f"fit99: K1 launched {launches['K1']} times, not {iters}")
+    for key, n in launches.items():
+        check(n > 0, f'{key} was not launched during fit99')
+
+
+def torus_cloud(R=40.0, r=10.0, n=8000, seed=0):
+    """Points on a torus in the x-z plane (the JAX suite's punch
+    fixture)."""
+    rng = np.random.default_rng(seed)
+    u = rng.uniform(0, 2 * np.pi, n)
+    v = rng.uniform(0, 2 * np.pi, n)
+    x = (R + r * np.cos(v)) * np.cos(u)
+    z = (R + r * np.cos(v)) * np.sin(u)
+    y = r * np.sin(v)
+    return np.stack([x, y, z], axis=1).astype(np.float32)
+
+
+def phase_punch(device='cuda', iters=25):
+    """An oblate seed fitted to a torus cloud, punched at iteration 20
+    inside the fit (eps 15 nm), then 5 iterations on the punched
+    topology."""
+    import torch
+    from ch_shrinkwrap_torch.mesh.primitives import icosphere
+    from ch_shrinkwrap_torch.models import MembraneMesh
+    pts = torus_cloud()
+    v, f = icosphere(3, radius=1.0)
+    v = v * np.array([55.0, 14.0, 55.0], np.float32)
+    mesh = MembraneMesh(v, f, kc=1.0, step_size=4.0, remesh_frequency=0,
+                        delaunay_remesh_frequency=20, delaunay_eps=15.0,
+                        device=device)
+    t0 = time.time()
+    mesh.shrink_wrap(pts, 3.0, max_iter=iters)
+    if torch.device(device).type == 'cuda':
+        torch.cuda.synchronize()
+    return dict(fit_s=time.time() - t0,
+                n_punched=sum(int(rec.extra.get('n_punched', 0))
+                              for rec in mesh.trace.records),
+                euler=int(mesh.euler_characteristic),
+                manifold=bool(mesh.is_manifold),
+                V=int(mesh.vertices.shape[0]),
+                trace=[(rec.kind, rec.iteration) for rec in
+                       mesh.trace.records])
+
+
+def check_punch(card, cpu):
+    n = card['n_punched']
+    check(n >= 1, 'fit.punch: nothing punched inside the loop')
+    check(card['euler'] == 2 - 2 * n,
+          f"fit.punch: euler {card['euler']} != 2 - 2 * {n}")
+    check(card['manifold'], 'fit.punch: mesh not manifold')
+    check(card['trace'][-1] == ('cg_block', 25),
+          f"fit.punch: no block after the punch ({card['trace']})")
+    check((cpu['n_punched'], cpu['euler']) == (n, card['euler']),
+          f"fit.punch: the CPU run punched {cpu['n_punched']} "
+          f"(euler {cpu['euler']}), the card {n} (euler {card['euler']})")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -784,17 +911,42 @@ def main():
         conv.pop('trace')
         phase_line('fit.39it', time.time() - t0, **conv)
         check_fit(conv, tag='39-iteration fit')
+    with Watchdog('fit99', DEADLINES['fit99']):
+        t0 = time.time()
+        for w in wrappers.values():
+            w.launches = 0
+        fit99 = phase_fit99()
+        launches99 = {k: w.launches for k, w in wrappers.items()}
+        trace = fit99.pop('trace')
+        wall = fit99.pop('wall')
+        for rec in trace:
+            print('  trace:', *rec, flush=True)
+        phase_line('fit99', time.time() - t0, launches=launches99, **fit99)
+        phase_line('fit99.wall', 0.0, **wall)
+        check_fit99(fit99, launches99)
+    with Watchdog('punch', DEADLINES['punch']):
+        t0 = time.time()
+        card = phase_punch()
+        cpu = phase_punch('cpu')
+        phase_line('fit.punch', time.time() - t0, **{
+            **{k: v for k, v in card.items() if k != 'trace'},
+            'cpu_n_punched': cpu['n_punched'], 'cpu_euler': cpu['euler'],
+            'cpu_fit_s': cpu['fit_s'], 'trace': card['trace']})
+        check_punch(card, cpu)
 
     print(f'total {time.time() - t_all:.1f}s', flush=True)
     table = []
     for key in ('K1', 'K2', 'K3', 'K3f'):
         rec = dict(recs[key])
         rec.pop('checks')
-        rec['launches'] = launches[key]
+        # launches: the north-star fit's (fit99); launches_fit20: the
+        # 20-iteration fit's
+        rec['launches'] = launches99[key]
+        rec['launches_fit20'] = launches[key]
         table.append({k: rec[k] for k in (
             'name', 'route', 'source', 'replaces', 'launches',
-            'max_abs_err', 'ms', 'call_ms', 'plain_ms', 'bound_ms',
-            'bound_by', 'library_ms')})
+            'launches_fit20', 'max_abs_err', 'ms', 'call_ms', 'plain_ms',
+            'bound_ms', 'bound_by', 'library_ms')})
     print(env['nvidia_smi'], flush=True)
     print(json.dumps({'kernels': table}), flush=True)
     print(json.dumps({'ok': True, 'device': {

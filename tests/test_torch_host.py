@@ -162,6 +162,9 @@ _PORT_MODULES = [
     'ch_shrinkwrap_torch.ops.cuda_gather',
     'ch_shrinkwrap_torch.solver.shrinkwrap',
     'ch_shrinkwrap_torch.models', 'ch_shrinkwrap_torch.utils',
+    'ch_shrinkwrap_torch.models.holepunch',
+    'ch_shrinkwrap_torch.models.holepunch_sdf',
+    'ch_shrinkwrap_torch.eval.delaunay_utils', 'ch_shrinkwrap_torch.sim',
 ]
 
 
@@ -193,6 +196,9 @@ def test_port_imports_without_jax():
 def test_no_jax_in_port_sources():
     pat = re.compile(r'import jax|from jax|ch_shrinkwrap_tpu')
     files = [os.path.join(REPO, 'chip_smoke.py')]
+    files += [os.path.join(REPO, 'scripts', n)
+              for n in os.listdir(os.path.join(REPO, 'scripts'))
+              if n.startswith('torch_') and n.endswith('.py')]
     for root, _, names in os.walk(os.path.join(REPO,
                                                'ch_shrinkwrap_torch')):
         files += [os.path.join(root, n) for n in names
@@ -279,8 +285,8 @@ def test_not_ported_options_raise():
     from ch_shrinkwrap_torch.models import MembraneMesh
     v, f = tico(2, radius=60.0)
     pts = sphere_points(500)
-    for kw in ({'neck_first_iter': 3, 'delaunay_remesh_frequency': 0},
-               {'delaunay_remesh_frequency': 4}):
+    for kw in ({'shrink_weight': 0.5}, {'capacity_mode': 'two'},
+               {'capacity_mode': 'bucketed'}):
         m = MembraneMesh(v, f, remesh_frequency=5, device='cpu', **kw)
         with pytest.raises(NotImplementedError):
             m.shrink_wrap(pts, 3.0, max_iter=10)
