@@ -11,15 +11,23 @@ counterpart is easy to find:
                 three hand-written CUDA kernels (``cuda_window``,
                 ``cuda_scatter``, ``cuda_gather``; sources in ``csrc/``,
                 built by ``ops/_build.py``).
-- ``solver``  — the conjugate-gradient block ``cg_block``.
+- ``solver``  — the conjugate-gradient block ``cg_block`` (with the
+                shrink prior) and the Tikhonov CG solver (``tikhonov``).
 - ``models``  — ``MembraneMesh`` and its ``shrink_wrap`` fit, with the
                 topology surgery between CG blocks: neck removal,
                 hole punching (``holepunch``; the SDF variant in
-                ``holepunch_sdf``) and the Delaunay remesh.
-- ``sim``     — signed-distance primitives (``sdf``).
-- ``eval``    — ``delaunay_utils``, the Delaunay hull surface that
-                ``MembraneMesh.delaunay_remesh`` rebuilds from.
-- ``convert`` — carries fit state from numpy into the port's tensors.
+                ``holepunch_sdf``) and the Delaunay remesh; and
+                ``SkeletonMesh`` (mean-curvature-flow skeleton).
+- ``sim``     — signed-distance primitives, the shape library and the
+                SMLM point-cloud simulation.
+- ``eval``    — metrics against the shape oracles, the sweep harness
+                (``python -m ch_shrinkwrap_torch.eval.harness``), the
+                Delaunay hull surface and the optional competitors.
+- ``recipes`` — the user-facing recipe modules and the YAML runner.
+- ``utils``   — tracing and fit checkpoints (``checkpoint``, the JAX
+                package's ``.npz`` keys).
+- ``convert`` — carries fit state and whole models from numpy, or from
+                the JAX package's objects, into the port.
 
 Entry points run on ``cuda`` unless the caller passes
 ``device='cpu'``; on the CPU every kernel wrapper runs its plain

@@ -5,7 +5,10 @@ arrays and its point cloud.  ``state_from_numpy`` takes that state as
 numpy arrays — for example the ``MeshArrays`` fields and inputs of the
 JAX package's ``cg_block``, fetched with ``np.asarray`` — and returns
 the port's tensors with the port's dtypes, so both packages start from
-identical bits.
+identical bits.  ``membrane_mesh_from`` carries a whole model (mesh, fit
+parameters and cached cloud) from any MembraneMesh-like object, the JAX
+package's included; ``utils.checkpoint`` does the same through a
+``.npz`` file that either package reads.
 """
 
 from __future__ import annotations
@@ -65,3 +68,21 @@ def state_from_numpy(positions, v_mask, faces, f_mask, nbr_v, nbr_f=None,
                     sigma_inv=opt(sigma_inv, np.float32),
                     weights=opt(weights, np.float32),
                     point_mask=opt(point_mask, np.bool_))
+
+
+def membrane_mesh_from(mesh, device='cuda'):
+    """A port ``MembraneMesh`` on ``device`` with the vertices, faces,
+    fit parameters and cached cloud of ``mesh`` (any object with those
+    attributes, for example the JAX package's MembraneMesh)."""
+    from .models.membrane_mesh import MembraneMesh
+    from .utils.checkpoint import FIT_PARAMETERS
+    out = MembraneMesh(np.asarray(mesh.vertices, np.float32),
+                       np.asarray(mesh.faces, np.int32), device=device)
+    for k in FIT_PARAMETERS:
+        if hasattr(mesh, k):
+            setattr(out, k, getattr(mesh, k))
+    pts = getattr(mesh, '_points', None)
+    if pts is not None:
+        out._points = np.asarray(pts)
+        out._sigma = getattr(mesh, '_sigma', None)
+    return out

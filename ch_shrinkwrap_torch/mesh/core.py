@@ -503,8 +503,27 @@ class TriangleMesh:
         duplicate faces and faces on over-shared (non-manifold) edges,
         split boundary walks into simple cycles and zig-zag fill them,
         erode boundary faces that cannot be filled, drop debris
-        components — until the boundary is gone or passes run out.
+        components — until the boundary is gone or passes run out; then
+        splits pinch points and drops the debris that frees.
+
+        Two departures from the JAX package's ``repair``, which returns
+        before the split when the holes close (and so can leave pinch
+        points, and with them a non-manifold surface): the split always
+        runs, and when a boundary remains after it (a pinch point on a
+        hole's ring can keep the fill from closing the hole) the passes
+        run once more.
         """
+        for _ in range(2):
+            self._repair_passes(max_passes)
+            if self._faces.size == 0:
+                return
+            self.split_pinched_vertices()
+            self._drop_debris()
+            if not self.boundary_loops():
+                return
+
+    def _repair_passes(self, max_passes):
+        """The JAX package's repair passes, up to ``max_passes``."""
         for _ in range(max_passes):
             f = self._faces
             if f.size == 0:
@@ -545,18 +564,12 @@ class TriangleMesh:
                 self._compact(f[~bad])
                 continue
 
-            # drop tiny debris components
-            labels, n = self.connected_components()
-            if n > 1:
-                fl = self.face_components
-                sizes = np.bincount(fl, minlength=n)
-                if (sizes < 8).any():
-                    self.keep_faces(sizes[fl] >= 8)
-                    continue
+            if self._drop_debris():
+                continue
 
             loops = self.boundary_loops()
             if not loops:
-                return
+                break
             he = self.halfedges
             new_tris = []
             erode = set()
@@ -585,7 +598,16 @@ class TriangleMesh:
                 faces = faces[keep]
             self._compact(np.asarray(faces, dtype=np.int32))
 
-        self.split_pinched_vertices()
+    def _drop_debris(self):
+        """Drop components of fewer than 8 faces; True when any went."""
+        _, n = self.connected_components()
+        if n > 1:
+            fl = self.face_components
+            sizes = np.bincount(fl, minlength=n)
+            if (sizes < 8).any():
+                self.keep_faces(sizes[fl] >= 8)
+                return True
+        return False
 
     def split_pinched_vertices(self):
         """Duplicate vertices whose incident faces form more than one

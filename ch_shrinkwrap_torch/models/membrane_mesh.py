@@ -10,9 +10,13 @@ curvature neck removal, short-edge cleanup) and the native remesh on
 the edge-length schedule, then re-pads the arrays.  ``delaunay_remesh``
 rebuilds the surface from the Delaunay hull of the vertices.
 
-Not ported yet (they raise ``NotImplementedError``): the shrink prior
-(``shrink_weight > 0``), multi-device fits, and capacity modes other
-than ``'final'``.
+The public surface follows the JAX package: ``shrink_wrap`` with the
+``'conjugate_gradient'`` and ``'skeleton'`` methods, the shrink prior
+(``shrink_weight > 0``), the ``'final'``, ``'two'`` and ``'bucketed'``
+capacity modes, curvature properties, the optimizer diagnostics
+(``S0..S3``, ``point_dis``, ``rms_point_sc``, ``point_influence``),
+``residual_histogram`` and ``distance_to_surface``.  Multi-device fits
+are not ported yet (they raise ``NotImplementedError``).
 """
 
 from __future__ import annotations
@@ -29,16 +33,22 @@ from ..mesh import remesh as _remesh
 from ..ops import meshdata
 from ..ops import curvature as _curv
 from ..ops import correspondence as _corr
+from ..ops import normals as _norm
 from ..ops.ordering import fit_point_order
 from ..solver.shrinkwrap import block_call
 from ..utils.tracing import FitTrace
 
 logger = logging.getLogger(__name__)
 
-DESCENT_METHODS = ['conjugate_gradient']
+DESCENT_METHODS = ['conjugate_gradient', 'skeleton']
 DEFAULT_DESCENT_METHOD = 'conjugate_gradient'
 
 KBT = _curv.KBT
+
+# closed pieces the neck pass cuts off with fewer faces than this are
+# debris: the coarsest closed surface of the package, an icosahedron,
+# has 20
+NECK_FRAGMENT_FACES = 20
 
 
 class MembraneMesh(TriangleMesh):
@@ -92,10 +102,18 @@ class MembraneMesh(TriangleMesh):
         # short edges): the scheduled remesh follows at the same boundary
         self.defer_boundary_remesh = True
 
-        # capacity quantum of the padded arrays; 'final' pads every
-        # block to one capacity predicted from the edge-length schedule
+        # capacity quantum of the padded arrays.  'final' pads every
+        # block to one capacity predicted from the edge-length schedule;
+        # 'two' runs the growth phase at a mid rung (about half the
+        # predicted final capacity) and then the final rung; 'bucketed'
+        # pads each block to the power-of-two bucket above the current
+        # mesh (monotone, meshdata.fit_buckets)
         self.pad_quantum = 1024
         self.capacity_mode = 'final'
+        # the boundary neck diagnostic reads K from the native host
+        # kernel; False computes it on the device at the end of each CG
+        # block (cg_block want_curv_K)
+        self.use_native_neck_k = True
         self.face_chunk = 2048
         # correspondence: 'brute' (exact), 'windowed' (K1 + K2), or
         # 'auto' (windowed once N*F crosses the brute-force budget)
@@ -115,7 +133,7 @@ class MembraneMesh(TriangleMesh):
 
         self.vertex_properties = ['E', 'curvature_principal0',
                                   'curvature_principal1', 'point_dis',
-                                  'point_influence']
+                                  'rms_point_sc', 'point_influence']
         self.vertex_vector_properties = ['S0', 'S1', 'S2', 'S3']
 
     # ------------------------------------------------------------------
@@ -165,7 +183,7 @@ class MembraneMesh(TriangleMesh):
 
     def _curv(self, key):
         if self._curv_state is None:
-            if key == 'K':
+            if key == 'K' and self.use_native_neck_k:
                 # K-only fast path: the native host kernel
                 from .. import native
                 K_nat = native.gaussian_k(self.vertices, self.faces)
@@ -181,7 +199,9 @@ class MembraneMesh(TriangleMesh):
                     out = self.smooth_per_vertex_data(out)
                 st[key] = out
                 return out
-            if '_dev' not in st:
+            if '_dev' not in st or getattr(st['_dev'], key) is None:
+                # the native K-only seed, or the CG block's K-only
+                # state: repopulate fully for any other field
                 st = self._populate_curvature_grad()
             V = self.vertices.shape[0]
             out = getattr(st['_dev'], key).cpu().numpy()[:V]
@@ -280,19 +300,35 @@ class MembraneMesh(TriangleMesh):
                 return pi[:V]
         if self._points is None:
             raise RuntimeError('no point cloud - run shrink_wrap first')
+        return self._vertex_ah_norm(
+            np.ones((self._points.shape[0], 3), np.float32))
+
+    @property
+    def rms_point_sc(self):
+        """|A^T(|res| replicated)| per vertex (pyx:1611-1623)."""
+        res = self._diag().res.cpu().numpy()[:self._points.shape[0]]
+        rn = np.sqrt((res * res).sum(1))[:, None] * np.ones(3)[None, :]
+        return self._vertex_ah_norm(rn.astype(np.float32))
+
+    def _vertex_ah_norm(self, rows):
+        """|A^T rows| per vertex: the (N, 3) per-point ``rows`` of the
+        cached cloud spread onto the current mesh's vertices by the
+        correspondence weights."""
         ma = self._padded_meshdata()
         pts = torch.from_numpy(
             np.ascontiguousarray(self._points, np.float32)).to(self.device)
-        _, fi = self._nearest_for_diagnostics(ma, pts)
+        _, fi, _ = self._nearest_for_diagnostics(ma, pts)
         v_idx, w = _corr.correspondence_weights(ma.positions, ma.faces,
                                                 pts, fi)
-        out = _corr.ah_apply(torch.ones_like(pts), v_idx, w,
-                             ma.positions.shape[0]).cpu().numpy()[:V]
+        out = _corr.ah_apply(torch.from_numpy(rows).to(self.device), v_idx,
+                             w, ma.positions.shape[0]).cpu().numpy()
+        out = out[:self.vertices.shape[0]]
         return np.sqrt((out * out).sum(1))
 
     def _nearest_for_diagnostics(self, ma, pts):
-        """Nearest face of every point, by the windowed search (in the
-        points' own order) when brute force would be too large."""
+        """Nearest face of every point and the face centres, by the
+        windowed search (in the points' own order) when brute force
+        would be too large."""
         centers = ma.positions[ma.faces.long()].mean(1)
         N = pts.shape[0]
         if N * ma.faces.shape[0] > 2e9:
@@ -302,9 +338,10 @@ class MembraneMesh(TriangleMesh):
                                                 ma.f_mask)
             inv = torch.empty_like(order)
             inv[order] = torch.arange(N, device=pts.device)
-            return d[inv], fi[inv]
-        return _corr.nearest_face_bruteforce(pts, centers, ma.f_mask,
-                                             face_chunk=self.face_chunk)
+            return d[inv], fi[inv], centers
+        d, fi = _corr.nearest_face_bruteforce(pts, centers, ma.f_mask,
+                                              face_chunk=self.face_chunk)
+        return d, fi, centers
 
     # ------------------------------------------------------------------
     # remesh and boundary cleanup
@@ -437,7 +474,8 @@ class MembraneMesh(TriangleMesh):
         """Sever necks flagged by extreme Gaussian curvature
         (pyx:1201-1219): delete the flagged vertices, repair the holes,
         remesh (unless ``defer_remesh``: the fit's scheduled remesh
-        follows at the same boundary), drop severed inner fragments.
+        follows at the same boundary), drop severed inner fragments and
+        closed pieces under ``NECK_FRAGMENT_FACES`` faces.
 
         ``self.neck_detector`` picks the low-side criterion:
         ``'threshold'`` (the reference's: every vertex below the low
@@ -487,6 +525,10 @@ class MembraneMesh(TriangleMesh):
             self.remesh(n_relax=0)
         t3 = time.time()
         self.remove_inner_surfaces()
+        # a ring of flagged vertices can cut off a closed piece of a few
+        # faces that lies on the surface, not inside it; the JAX package
+        # keeps such a piece (its repair drops only pieces under 8 faces)
+        self.remove_degenerate_components(min_faces=NECK_FRAGMENT_FACES)
         logger.info('remove_necks[%s]: %d verts - curv %.2fs, '
                     'remove+repair %.2fs, remesh %.2fs, inner %.2fs',
                     self.neck_detector, len(verts), t_curv, t2 - t1,
@@ -570,14 +612,12 @@ class MembraneMesh(TriangleMesh):
             and (self.remesh_frequency <= max_iter)
         dr = ((self.delaunay_remesh_frequency != 0)
               and (self.delaunay_remesh_frequency <= max_iter))
-        if self.shrink_weight > 0:
-            raise NotImplementedError('the shrink prior is not ported yet')
         if getattr(self, 'device_mesh', None) is not None:
             raise NotImplementedError('multi-device fits are not ported '
                                       'yet')
-        if self.capacity_mode != 'final':
-            raise NotImplementedError(
-                f'capacity_mode {self.capacity_mode!r} is not ported yet')
+        cap_mode = self.capacity_mode
+        if cap_mode not in ('final', 'two', 'bucketed'):
+            raise ValueError(f'unknown capacity_mode {cap_mode!r}')
         # the edge-length schedule's step: with both cadences on, the
         # reference's block length gcd(remesh, punch) (pyx:1430-1441)
         if r and dr:
@@ -620,6 +660,8 @@ class MembraneMesh(TriangleMesh):
         res_weights = (w / w.mean()).astype(np.float32)
 
         lam0 = float(step_size * self.kc / 2.0)
+        use_shrink = self.shrink_weight > 0
+        shrink_lam = float(self.shrink_weight)
         n_iter = int(min(max_iter, self.truncate_at))
 
         method = self.corr_method
@@ -637,8 +679,11 @@ class MembraneMesh(TriangleMesh):
 
         # capacity policy 'final': one capacity for the whole fit,
         # predicted from the last executed remesh boundary's clamped
-        # target length (pyx:1541-1546 leaves the schedule unclamped)
-        if r:
+        # target length (pyx:1541-1546 leaves the schedule unclamped);
+        # 'two' starts at a mid rung and keeps the final one in
+        # _cap_rungs; 'bucketed' sizes each block in the loop
+        self._cap_rungs = []
+        if r and cap_mode in ('final', 'two'):
             last_remesh_iter = (n_iter // self.remesh_frequency) \
                 * self.remesh_frequency
             pred_final_len = max(float(np.clip(
@@ -655,6 +700,18 @@ class MembraneMesh(TriangleMesh):
                                              self.pad_quantum)
             v_cap = meshdata.round_up_bucket(int(1.15 * pred_faces / 2) + 8,
                                              self.pad_quantum)
+            if cap_mode == 'two':
+                v_mid = meshdata.round_up_bucket(
+                    max(v_cap // 2, self.vertices.shape[0] + 8),
+                    self.pad_quantum)
+                f_mid = meshdata.round_up_bucket(
+                    max(2 * v_mid - 4, self.faces.shape[0]),
+                    self.pad_quantum)
+                if v_mid < v_cap and f_mid < f_cap:
+                    self._cap_rungs = [(v_cap, f_cap)]
+                    v_cap, f_cap = v_mid, f_mid
+                # else the seed is already past half the final size:
+                # one rung, as 'final'
         else:
             v_cap = f_cap = None
         self._final_caps_pred = (v_cap, f_cap) if v_cap is not None \
@@ -666,6 +723,13 @@ class MembraneMesh(TriangleMesh):
             ni_static = min(ni_static, self.remesh_frequency)
         if dr:
             ni_static = min(ni_static, self.delaunay_remesh_frequency)
+
+        # neck removal reads K at every remesh boundary: from the native
+        # host kernel, or else from the CG block on the device
+        from .. import native as _native
+        want_K = bool(r and self.neck_first_iter > 0
+                      and not (self.use_native_neck_k
+                               and _native.get_lib() is not None))
 
         if method == 'windowed':
             order = fit_point_order(points)
@@ -704,6 +768,21 @@ class MembraneMesh(TriangleMesh):
                 # index locality for the device gathers and scatters
                 self.spatial_sort()
                 prep['sort_s'] = time.time() - t0
+                if r and cap_mode == 'bucketed':
+                    # 15% headroom inside the bucket, monotone
+                    vb, fb = meshdata.fit_buckets(
+                        self.vertices.shape[0], self.faces.shape[0],
+                        self.pad_quantum)
+                    v_cap = max(v_cap or 0, vb)
+                    f_cap = max(f_cap or 0, fb)
+                elif (r and cap_mode == 'two' and self._cap_rungs
+                        and (self.vertices.shape[0] > v_cap
+                             or self.faces.shape[0] > f_cap)):
+                    # the mesh outgrew the mid rung: advance to the
+                    # final one
+                    vb, fb = self._cap_rungs.pop(0)
+                    v_cap = max(v_cap, vb)
+                    f_cap = max(f_cap, fb)
                 if v_cap is not None and (self.vertices.shape[0] > v_cap
                                           or self.faces.shape[0] > f_cap):
                     # remesh overshot the prediction; grow the capacity
@@ -732,10 +811,12 @@ class MembraneMesh(TriangleMesh):
             t_block = time.time()
             f_new, diag = block_call(
                 positions, ma.faces, ma.f_mask, ma.v_mask, ma.nbr_v,
-                pts_t, sig_t, w_t, pmask, lam0, 0.0,
-                num_iters=ni_static, active_iters=n_it, use_shrink=False,
+                pts_t, sig_t, w_t, pmask, lam0, shrink_lam,
+                num_iters=ni_static, active_iters=n_it,
+                use_shrink=use_shrink,
                 face_chunk=self.face_chunk, corr_method=method,
                 face_nbrs=ma.face_nbrs, tables=tables,
+                nbr_f=ma.nbr_f if want_K else None, want_curv_K=want_K,
                 face_hcgc=(method == 'windowed' and tables is not None
                            and ma.positions.shape[0] > meshdata.HCGC_MIN_VP
                            and uniform_weights))
@@ -752,6 +833,13 @@ class MembraneMesh(TriangleMesh):
                     f'iteration {j + n_it}; check sigma/weights inputs')
             self.set_positions(new_pos)
             self._initialize_curvature_vectors()
+            if diag.K is not None:
+                # seed the curvature cache with the block's K (the same
+                # positions and tables); other fields repopulate on demand
+                self._curv_state = {'_dev': _curv.CurvatureState(
+                    k_0=None, k_1=None, e_0=None, e_1=None, H=None,
+                    K=diag.K, dH=None, dK=None, E=None, pE=None,
+                    dE_neighbors=None, dEdN=None)}
             j += n_it
             # block_s: the CG block from its call to its positions back
             # on the host
@@ -829,3 +917,52 @@ class MembraneMesh(TriangleMesh):
         opts = dict(points=points, sigma=sigma, max_iter=max_iter,
                     step_size=self.step_size, **kwargs)
         return getattr(self, 'opt_{}'.format(method))(**opts)
+
+    def opt_skeleton(self, points, sigma, max_iter=10, step_size=None,
+                     **kwargs):
+        """Skeletonize through a SkeletonMesh view of this mesh and write
+        the collapsed topology back (``shrink_wrap(method='skeleton')``
+        on a plain MembraneMesh, as SkeletonMesh.shrink_wrap does)."""
+        from .skeleton_mesh import SkeletonMesh
+        sk = SkeletonMesh(self.vertices.copy(), self.faces.copy(),
+                          device=self.device)
+        sk.opt_skeleton(points=points, sigma=sigma, max_iter=max_iter,
+                        **kwargs)
+        self.set_topology(sk.vertices, sk.faces)
+        self._initialize_curvature_vectors()
+        return self
+
+    def residual_histogram(self, points=None, sigma=None, bins=None):
+        """Signed distance-to-surface histogram with the chi-distribution
+        overlay (util.py:49-76).  Returns (counts, bin edges, predicted
+        density); plotting is left to the caller."""
+        if points is None:
+            points = self._points
+        if sigma is None:
+            sigma = self._sigma
+        d = self.distance_to_surface(points)
+        if bins is None:
+            bins = np.linspace(-100, 100, 500)
+        counts, edges = np.histogram(d, bins, density=True)
+        try:
+            from scipy import stats
+            me = float(np.median(sigma))
+            x = 0.5 * (edges[:-1] + edges[1:])
+            pred = 0.5 * stats.chi(3).pdf(np.abs(x) / me) / me
+        except Exception:
+            pred = None
+        return counts, edges, pred
+
+    def distance_to_surface(self, points):
+        """Signed distance of points to the mesh (negative inside), by
+        the nearest face's plane."""
+        ma = self._padded_meshdata()
+        pts = torch.from_numpy(
+            np.ascontiguousarray(points, np.float32)).to(self.device)
+        dmean, fi, centers = self._nearest_for_diagnostics(ma, pts)
+        fn, _ = _norm.face_geometry(ma.positions, ma.faces, ma.f_mask)
+        fi_l = fi.long()
+        n = fn[fi_l].cpu().numpy()
+        c = centers[fi_l].cpu().numpy()
+        signed = ((np.asarray(points) - c) * n).sum(1)
+        return np.sign(signed) * dmean.cpu().numpy()

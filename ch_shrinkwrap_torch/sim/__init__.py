@@ -1,4 +1,10 @@
-"""Simulation helpers; so far only the signed-distance primitives
-(``sdf``) that ``eval.delaunay_utils`` needs."""
+"""Simulation: signed-distance primitives (``sdf``), the shape library
+(``shape``) and SMLM point-cloud simulation (``pointcloud``), host-side
+numpy drawn from a seeded generator in the JAX package's order."""
 
-from . import sdf
+from . import sdf, shape, pointcloud
+from .pointcloud import (
+    points_from_sdf,
+    generate_smlm_pointcloud_from_shape,
+    smlmify_points,
+)

@@ -30,6 +30,7 @@ import torch
 
 from ..ops import correspondence as corr
 from ..ops import normals as _normals
+from ..ops.curvature import curvature_grad
 from ..ops.cuda_gather import row_gather, row_group_sum
 from ..ops.cuda_scatter import windowed_ah, windowed_ahw2
 
@@ -154,10 +155,14 @@ def cg_block(positions, faces, f_mask, v_mask, nbr_v,
     face_hcgc : contract the subspace normal equations face-side (needs
         'windowed' and strictly positive weights on every coordinate)
     active_iters : iterations beyond it are skipped (frozen)
+    use_shrink : add the shrink prior (weight ``shrink_lam``) as a
+        fourth search direction, between the ncc prior and the
+        classic-CG memory direction
+    want_curv_K : with ``nbr_f``, return the Gaussian curvature at the
+        final positions as ``diag.K``
     """
-    if use_shrink or want_curv_K or spmd_mesh is not None:
-        raise NotImplementedError(
-            'use_shrink, want_curv_K and spmd_mesh are not ported yet')
+    if spmd_mesh is not None:
+        raise NotImplementedError('spmd_mesh is not ported yet')
     if corr_method not in ('brute', 'windowed'):
         raise ValueError(f'unknown corr_method {corr_method!r}')
     if face_hcgc and corr_method != 'windowed':
@@ -167,14 +172,17 @@ def cg_block(positions, faces, f_mask, v_mask, nbr_v,
     Vp = positions.shape[0]
     N = points.shape[0]
     Fp = faces.shape[0]
-    n_dirs0 = 2                     # S0 and the ncc prior direction
-    s_size = n_dirs0 + 1            # + the classic-CG memory direction
+    # S0, the ncc prior direction and, with use_shrink, the shrink
+    # prior direction; then the classic-CG memory direction
+    n_dirs0 = 3 if use_shrink else 2
+    s_size = n_dirs0 + 1
     faces_l = faces.long()
 
     pmask3 = point_mask.to(f32)[:, None]
     el_mask = ((weights > 0) & point_mask.bool()[:, None]).to(f32)
     vmask3 = v_mask.to(f32)[:, None]
-    lam2 = float(np.float32(lam0) ** 2)
+    lam2 = [float(np.float32(lam0) ** 2),
+            float(np.float32(shrink_lam) ** 2)]
 
     corr_starts = corr_prep = corr_sub = None
     if corr_method == 'windowed':
@@ -267,7 +275,18 @@ def cg_block(positions, faces, f_mask, v_mask, nbr_v,
 
         S0 = S0_raw * vmask3
         pref0 = (f - ncc) * vmask3
-        S = torch.stack([S0, -pref0, S_last], dim=-1)        # (Vp, 3, s)
+        prefs = [pref0]
+        dirs = [S0, -pref0]
+        if use_shrink:
+            # shrink prior: f - 30 p, p = max(1 - |A^T 1|, 0) n
+            # (mesh_conj_grad.py:893-909)
+            p_shrink = (torch.clamp(1.0 - point_influence, min=0.0)[:, None]
+                        * vn) * vmask3
+            pref1 = 30.0 * p_shrink
+            prefs.append(pref1)
+            dirs.append(-pref1)
+        dirs.append(S_last)
+        S = torch.stack(dirs, dim=-1)                        # (Vp, 3, s)
         n_active = s_size if it > 0 else n_dirs0
 
         # --- orthogonality statistic over ordered pairs (i, j != i,
@@ -317,9 +336,13 @@ def cg_block(positions, faces, f_mask, v_mask, nbr_v,
             Hc = torch.einsum('nik,nil->kl', ASm, ASm)
             Gc = torch.einsum('nik,ni->k', ASm, res_m)
 
+        # L = identity for every prior: Hw = S^T S, Gw = -S^T pref
         Sv = S * vmask3[..., None]
-        H = Hc + lam2 * torch.einsum('vik,vil->kl', Sv, Sv)
-        G = Gc - lam2 * torch.einsum('vik,vi->k', Sv, pref0)
+        Hw = torch.einsum('vik,vil->kl', Sv, Sv)
+        H, G = Hc, Gc
+        for lam2_i, pref in zip(lam2, prefs):
+            H = H + lam2_i * Hw
+            G = G - lam2_i * torch.einsum('vik,vi->k', Sv, pref)
 
         act = (torch.arange(s_size, device=dev) < n_active).to(f32)
         H = H * act[None, :] * act[:, None] + torch.diag(1.0 - act)
@@ -347,12 +370,18 @@ def cg_block(positions, faces, f_mask, v_mask, nbr_v,
             tests_hist = [tests_hist[1], tests_hist[2], test_v]
         diag_state = (S, res, point_influence, dmean)
 
+    K_out = None
+    if want_curv_K and nbr_f is not None:
+        # Gaussian curvature at the final positions, for the boundary
+        # neck diagnostic (pyx:1516-1527)
+        K_out = curvature_grad(f, faces, f_mask, v_mask, nbr_v, nbr_f).K
+
     S_f, res_f, pi_f, d_f = diag_state
     diags = SolverDiagnostics(
         tests=torch.tensor(tests, dtype=f32),
         ress=torch.tensor(ress, dtype=f32),
         n_done=torch.tensor(done), S=S_f, res=res_f,
-        point_influence=pi_f, d=d_f, K=None)
+        point_influence=pi_f, d=d_f, K=K_out)
     return f, diags
 
 

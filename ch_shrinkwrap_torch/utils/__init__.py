@@ -3,4 +3,4 @@ from .math import (
     dot2,
     loc_error,
 )
-from . import tracing
+from . import tracing, checkpoint

@@ -25,8 +25,22 @@ Phase fit.punch fits an oblate seed to a torus cloud and punches
 inside the loop on the card, and must make the same cuts as the same
 fit on the CPU.
 
+Phase image runs the image recipe (ImageShrinkwrapMembrane with its
+defaults: 100 iterations, the shrink prior at weight 1, remesh every 5,
+neck removal after iteration 9) on a 3-D histogram of the same cloud at
+5 nm voxels, from the same seed, with the north-star neck thresholds
+and a 5 nm minimum edge.  It must end within half a voxel of R on one
+closed manifold sphere, K1 and K2 launched once an iteration and K3
+and K3f launched; the same recipe at 10 iterations through the kernels
+and through their plain versions must agree within 0.2 nm in R.
+Phase sweep runs the evaluation harness on configs/test_ersim.yaml
+(the ERSim shape, 39 iterations): the entry must write a metrics row of
+the right topology (euler 0, one manifold component), and a second
+evaluate in the same directory must skip it.
+
 Phases run in order (env, build, kernels, cg_block, fit, fit99,
-fit.punch), each under a watchdog deadline: a phase that overruns
+fit.punch, image, sweep), each under a watchdog deadline: a phase that
+overruns
 prints its name and elapsed time and the process exits non-zero.  Any
 failed check exits non-zero.  The second-to-last line is the kernel
 table as JSON; the last line is {"ok": true, "device": {...}}.  Needs
@@ -47,11 +61,12 @@ import time
 
 import numpy as np
 
-# per-phase deadlines in seconds; they add up to 1080, so the whole
+# per-phase deadlines in seconds; they add up to 1050, so the whole
 # run ends inside 1200 s (the expected total on an H100 is a few
 # minutes)
-DEADLINES = {'env': 30, 'build': 180, 'kernels': 150, 'cg_block': 60,
-             'fit': 180, 'fit99': 360, 'punch': 120}
+DEADLINES = {'env': 30, 'build': 120, 'kernels': 120, 'cg_block': 45,
+             'fit': 150, 'fit99': 120, 'punch': 60, 'image': 165,
+             'sweep': 240}
 
 # H100 SXM peaks (NVIDIA data sheet) for the bound column
 HBM_BYTES_PER_S = 3.35e12
@@ -60,6 +75,8 @@ FP32_FLOPS_PER_S = 67e12
 N_POINTS = 1_000_000
 RADIUS = 500.0
 SIGMA = 5.0
+VOXEL = 5.0
+HERE = os.path.dirname(os.path.abspath(__file__))
 
 
 class CheckFailed(Exception):
@@ -259,10 +276,14 @@ def path_inputs(device='cuda', n_points=N_POINTS, mesh_fn=_kernel_mesh):
     # accumulators are masked)
     fused = torch.randn((3 * Fp, 7), generator=g, device=dev) \
         * ma.f_mask.repeat_interleave(3)[:, None]
+    # S has 3 columns a search direction: 3 directions, or 4 with the
+    # shrink prior
     gathers = {'tri': (f, tables.tri_idx),
                'ncc': (torch.cat([f, vn], 1), tables.ncc_idx),
                'S': (torch.randn((Vp, 9), generator=g, device=dev),
-                     tables.tri_idx)}
+                     tables.tri_idx),
+               'S12': (torch.randn((Vp, 12), generator=g, device=dev),
+                       tables.tri_idx)}
     return SimpleNamespace(
         dev=dev, mesh=mesh, ma=ma, pts=pts, centers=centers, Fp=Fp,
         Vp=Vp, Fp_al=Fp_al, W=W, N=N, starts=starts, prep=prep,
@@ -525,6 +546,10 @@ def phase_kernels(device='cuda', n_points=N_POINTS, mesh_fn=_kernel_mesh,
                  library_ms=timer(lambda: torch.index_select(
                      src, 0, idx64))['ms'])
         per_call[key] = {k: round(v, 5) for k, v in r.items()}
+        if key == 'S12':
+            # the shrink prior's S, beside the 9-column row; the K3 row
+            # stays one iteration without the prior
+            continue
         for k, v in r.items():
             k3[k] += v
         k3['bytes'] += nbytes(src, idx, out)
@@ -536,7 +561,8 @@ def phase_kernels(device='cuda', n_points=N_POINTS, mesh_fn=_kernel_mesh,
         max_abs_err=0.0, ms=k3['ms'], call_ms=k3['call_ms'],
         plain_ms=k3['plain_ms'], bound_ms=bms, bound_by=bby,
         library_ms=k3['library_ms'],
-        checks=dict(per='one iteration: tri + ncc + S gathers',
+        checks=dict(per='one iteration: tri + ncc + S gathers (S12: the '
+                        'shrink prior\'s S, not in the sum)',
                     **per_call))
 
     # ---- K3f: the fold's fused gather + masked group sum --------------
@@ -847,6 +873,128 @@ def check_punch(card, cpu):
           f"(euler {cpu['euler']}), the card {n} (euler {card['euler']})")
 
 
+class VoxelImage:
+    """The image ImageShrinkwrapMembrane reads: ``data`` (nx, ny, nz)
+    weights, ``voxelsize_nm`` and ``origin``, the first voxel's
+    centre."""
+
+    def __init__(self, data, voxelsize_nm, origin):
+        self.data = data
+        self.voxelsize_nm = voxelsize_nm
+        self.origin = origin
+
+
+def cloud_image(pts, voxel=VOXEL):
+    """3-D histogram of a cloud at ``voxel`` nm bins from its lowest
+    corner, with the origin on the first bin's centre."""
+    lo = pts.min(0).astype(np.float64)
+    n = np.maximum(np.ceil((pts.max(0) - lo) / voxel).astype(int), 1)
+    edges = [lo[k] + voxel * np.arange(n[k] + 1) for k in range(3)]
+    data, _ = np.histogramdd(pts, bins=edges)
+    return VoxelImage(data.astype(np.float32), (voxel,) * 3,
+                      tuple(float(x) for x in lo + voxel / 2.0))
+
+
+def phase_image(device='cuda', n_points=N_POINTS, radius=RADIUS,
+                grid_n=48, iters=100, min_edge=5.0, voxel=VOXEL):
+    """The image recipe with its defaults (the shrink prior at weight
+    1) on a histogram of the sphere cloud, from the marching seed, with
+    the north-star neck thresholds and a ``min_edge`` minimum edge."""
+    import torch
+    from ch_shrinkwrap_torch.mesh.marching import wrap_start
+    from ch_shrinkwrap_torch.recipes.surface_fitting import \
+        ImageShrinkwrapMembrane
+    pts, _ = sphere_cloud(n_points, radius=radius)
+    t0 = time.time()
+    image = cloud_image(pts, voxel)
+    t_image = time.time() - t0
+    surf = wrap_start(pts, offset=25.0, grid_n=grid_n)
+    t_seed = time.time() - t0 - t_image
+    mod = ImageShrinkwrapMembrane(
+        input='surf', input_image='image', output='membrane',
+        max_iters=iters, neck_threshold_low=-1e-3,
+        neck_threshold_high=1e-2, minimum_edge_length=min_edge,
+        device=device)
+    ns = {'surf': surf, 'image': image}
+    t1 = time.time()
+    mod.execute(ns)
+    if torch.device(device).type == 'cuda':
+        torch.cuda.synchronize()
+    t_fit = time.time() - t1
+    mesh = ns['membrane']
+    r = np.linalg.norm(mesh.vertices, axis=1)
+    _, n_comp = mesh.connected_components()
+    recs = mesh.trace.records
+    wall = mesh.trace.wall_by_phase()
+    host = t_fit - wall['block']
+    return dict(image_s=t_image, seed_s=t_seed, fit_s=t_fit,
+                host_s=host, host_share=host / t_fit,
+                voxels=list(image.data.shape),
+                n_pseudo=int((image.data > 0).sum()),
+                V=int(mesh.vertices.shape[0]),
+                R_mean=float(r.mean()), R_std=float(r.std()),
+                euler=int(mesh.euler_characteristic),
+                manifold=bool(mesh.is_manifold), components=int(n_comp),
+                method=mesh._last_corr_method,
+                directions=int(mesh._last_diag.S.shape[-1]),
+                necks_removed=sum(int(rec.extra.get('necks_removed', 0))
+                                  for rec in recs),
+                wall=wall,
+                trace=[(rec.kind, rec.iteration, round(rec.wall_time, 3),
+                        rec.n_vertices, rec.extra.get('v_cap', ''))
+                       for rec in recs])
+
+
+def check_image(fit, launches, iters=100, voxel=VOXEL):
+    check(abs(fit['R_mean'] - RADIUS) < voxel / 2,
+          f"image |R - {RADIUS}| = {abs(fit['R_mean'] - RADIUS)} "
+          f">= {voxel / 2}")
+    check(fit['euler'] == 2, f"image euler {fit['euler']}")
+    check(fit['manifold'], 'image mesh not manifold')
+    check(fit['components'] == 1, f"image components {fit['components']}")
+    check(fit['directions'] == 4,
+          f"image: {fit['directions']} search directions, not 4")
+    for key in ('K1', 'K2'):
+        check(launches[key] == iters,
+              f'image: {key} launched {launches[key]} times, not {iters}')
+    for key, n in launches.items():
+        check(n > 0, f'{key} was not launched during the image fit')
+
+
+def phase_sweep(config=None, device='cuda', seed=0):
+    """The evaluation harness on a sweep config (default
+    configs/test_ersim.yaml), then the same sweep again in the same
+    output directory, which must skip the finished entry."""
+    import tempfile
+    from ch_shrinkwrap_torch.eval.harness import evaluate
+    if config is None:
+        config = os.path.join(HERE, 'configs', 'test_ersim.yaml')
+    with tempfile.TemporaryDirectory() as out:
+        t0 = time.time()
+        rows = evaluate(config, out_dir=out, seed=seed, device=device)
+        t1 = time.time()
+        again = evaluate(config, out_dir=out, seed=seed, device=device)
+        t2 = time.time()
+        with open(os.path.join(out, 'metrics.jsonl')) as fh:
+            n_lines = len(fh.read().splitlines())
+    return dict(rows=rows, first_s=t1 - t0, restart_s=t2 - t1,
+                restart_rows=len(again), n_lines=n_lines)
+
+
+def check_sweep(sw, euler=0):
+    check(len(sw['rows']) == 1 and sw['n_lines'] == 1,
+          f"sweep: {len(sw['rows'])} rows, {sw['n_lines']} lines written "
+          f"(an entry failed)")
+    row = sw['rows'][0]
+    check(row['euler'] == euler, f"sweep: euler {row['euler']}")
+    check(row['components'] == 1, f"sweep: components {row['components']}")
+    check(row['manifold'], 'sweep: mesh not manifold')
+    check(row.get('topology_correct') is True,
+          'sweep: topology_correct is not true')
+    check(sw['restart_rows'] == 0, 'sweep: the restart did not skip the '
+          'finished entry')
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -933,6 +1081,46 @@ def main():
             'cpu_n_punched': cpu['n_punched'], 'cpu_euler': cpu['euler'],
             'cpu_fit_s': cpu['fit_s'], 'trace': card['trace']})
         check_punch(card, cpu)
+    with Watchdog('image', DEADLINES['image']):
+        t0 = time.time()
+        for w in wrappers.values():
+            w.launches = 0
+        img = phase_image()
+        launches_img = {k: w.launches for k, w in wrappers.items()}
+        trace = img.pop('trace')
+        wall = img.pop('wall')
+        for rec in trace:
+            print('  trace:', *rec, flush=True)
+        phase_line('image', time.time() - t0, launches=launches_img, **img)
+        phase_line('image.wall', 0.0, **wall)
+        check_image(img, launches_img)
+        t0 = time.time()
+        short = phase_image(iters=10)
+        with plain_versions():
+            short_ref = phase_image(iters=10)
+        d_r = abs(short['R_mean'] - short_ref['R_mean'])
+        phase_line('image.plain', time.time() - t0, dR=d_r,
+                   R_kernels=short['R_mean'], R_plain=short_ref['R_mean'],
+                   V_kernels=short['V'], V_plain=short_ref['V'],
+                   fit_s_kernels=short['fit_s'],
+                   fit_s_plain=short_ref['fit_s'])
+        check(d_r < 0.2, f'image at 10 iterations vs plain: |dR| = {d_r}')
+    with Watchdog('sweep', DEADLINES['sweep']):
+        t0 = time.time()
+        for w in wrappers.values():
+            w.launches = 0
+        sw = phase_sweep()
+        launches_sw = {k: w.launches for k, w in wrappers.items()}
+        row = sw['rows'][0] if sw['rows'] else {}
+        phase_line('sweep', time.time() - t0, launches=launches_sw,
+                   first_s=sw['first_s'], restart_s=sw['restart_s'],
+                   restart_rows=sw['restart_rows'], **{
+                       k: row.get(k) for k in (
+                           'sdf_rms', 'berger_mean_distance', 'duration',
+                           'ntriangles', 'euler', 'components',
+                           'manifold', 'topology_correct', 'mse_rms',
+                           'sdf_hausdorff', 'berger_hausdorff')})
+        check_sweep(sw)
 
     print(f'total {time.time() - t_all:.1f}s', flush=True)
     table = []
@@ -940,13 +1128,14 @@ def main():
         rec = dict(recs[key])
         rec.pop('checks')
         # launches: the north-star fit's (fit99); launches_fit20: the
-        # 20-iteration fit's
+        # 20-iteration fit's; launches_image: the image recipe's
         rec['launches'] = launches99[key]
         rec['launches_fit20'] = launches[key]
+        rec['launches_image'] = launches_img[key]
         table.append({k: rec[k] for k in (
             'name', 'route', 'source', 'replaces', 'launches',
-            'launches_fit20', 'max_abs_err', 'ms', 'call_ms', 'plain_ms',
-            'bound_ms', 'bound_by', 'library_ms')})
+            'launches_fit20', 'launches_image', 'max_abs_err', 'ms',
+            'call_ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms')})
     print(env['nvidia_smi'], flush=True)
     print(json.dumps({'kernels': table}), flush=True)
     print(json.dumps({'ok': True, 'device': {

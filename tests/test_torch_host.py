@@ -165,6 +165,17 @@ _PORT_MODULES = [
     'ch_shrinkwrap_torch.models.holepunch',
     'ch_shrinkwrap_torch.models.holepunch_sdf',
     'ch_shrinkwrap_torch.eval.delaunay_utils', 'ch_shrinkwrap_torch.sim',
+    'ch_shrinkwrap_torch.sim.shape', 'ch_shrinkwrap_torch.sim.pointcloud',
+    'ch_shrinkwrap_torch.solver.tikhonov',
+    'ch_shrinkwrap_torch.models.skeleton_mesh',
+    'ch_shrinkwrap_torch.eval', 'ch_shrinkwrap_torch.eval.metrics',
+    'ch_shrinkwrap_torch.eval.screened_poisson',
+    'ch_shrinkwrap_torch.eval.alpha_wrap',
+    'ch_shrinkwrap_torch.eval.harness',
+    'ch_shrinkwrap_torch.utils.checkpoint', 'ch_shrinkwrap_torch.recipes',
+    'ch_shrinkwrap_torch.recipes.surface_fitting',
+    'ch_shrinkwrap_torch.recipes.surface_feature_extraction',
+    'ch_shrinkwrap_torch.recipes.simulation',
 ]
 
 
@@ -244,8 +255,16 @@ def test_entry_points_default_to_cuda():
     v, f = tico(2, radius=10.0)
     assert MembraneMesh(v, f).device == torch.device('cuda')
     assert MembraneMesh(v, f, device='cpu').device == torch.device('cpu')
-    for fn in (tmd.from_mesh, state_from_numpy):
+    from ch_shrinkwrap_torch.convert import membrane_mesh_from
+    from ch_shrinkwrap_torch.eval import harness
+    from ch_shrinkwrap_torch.utils.checkpoint import load_fit_state
+    from ch_shrinkwrap_torch.recipes import MODULE_REGISTRY
+    for fn in (tmd.from_mesh, state_from_numpy, membrane_mesh_from,
+               load_fit_state, harness.evaluate,
+               harness.run_shrinkwrap_entry):
         assert inspect.signature(fn).parameters['device'].default == 'cuda'
+    for name in ('ShrinkwrapMembrane', 'ImageShrinkwrapMembrane'):
+        assert MODULE_REGISTRY[name]().device == 'cuda'
 
 
 def test_kernel_wrappers_never_fall_back_off_cpu():
@@ -282,11 +301,28 @@ def test_kernel_wrappers_never_fall_back_off_cpu():
 
 
 def test_not_ported_options_raise():
+    """The options that once raised here (the shrink prior, the 'two'
+    and 'bucketed' capacity modes) now run and follow the JAX package:
+    the same capacities block for block and the same fitted radius.
+    Multi-device fits still raise."""
+    from ch_shrinkwrap_tpu.models import MembraneMesh as JFit
     from ch_shrinkwrap_torch.models import MembraneMesh
     v, f = tico(2, radius=60.0)
     pts = sphere_points(500)
     for kw in ({'shrink_weight': 0.5}, {'capacity_mode': 'two'},
                {'capacity_mode': 'bucketed'}):
-        m = MembraneMesh(v, f, remesh_frequency=5, device='cpu', **kw)
-        with pytest.raises(NotImplementedError):
-            m.shrink_wrap(pts, 3.0, max_iter=10)
+        kw = dict(kw, remesh_frequency=5, kc=1.0, step_size=4.0)
+        m = MembraneMesh(v, f, device='cpu', **kw)
+        m.shrink_wrap(pts, 3.0, max_iter=10, minimum_edge_length=6.0)
+        jm = JFit(v, f, **kw)
+        jm.shrink_wrap(pts, 3.0, max_iter=10, minimum_edge_length=6.0)
+        caps = [[r.extra['v_cap'] for r in x.trace.records
+                 if r.kind == 'cg_block'] for x in (m, jm)]
+        assert caps[0] == caps[1], kw
+        rt = np.linalg.norm(m.vertices, axis=1).mean()
+        rj = np.linalg.norm(jm.vertices, axis=1).mean()
+        assert abs(rt - rj) < 0.1, kw
+    m = MembraneMesh(v, f, remesh_frequency=5, device='cpu')
+    m.device_mesh = 4
+    with pytest.raises(NotImplementedError):
+        m.shrink_wrap(pts, 3.0, max_iter=10)

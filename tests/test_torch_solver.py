@@ -267,6 +267,9 @@ def test_cg_block_orthogonality_stop_freezes():
 
 
 def test_block_call_and_unported_options():
+    """block_call is cg_block; the options that once raised here
+    (use_shrink, want_curv_K) now run and follow the JAX block, and
+    spmd_mesh still raises."""
     pts, sig = sphere_cloud(n=500)
     a, st = make_state(pts, sig, sub=2)
     f1, d1 = tsw.block_call(*port_args(st, 2.0), 0.0, num_iters=2,
@@ -276,7 +279,22 @@ def test_block_call_and_unported_options():
     f2, _ = tsw.cg_block(*port_args(st, 2.0), num_iters=2, face_chunk=512)
     np.testing.assert_array_equal(f1.numpy(), f2.numpy())
     assert d1.S.shape == (a['positions'].shape[0], 3, 3)
-    for kw in ({'use_shrink': True}, {'want_curv_K': True},
-               {'spmd_mesh': object()}):
-        with pytest.raises(NotImplementedError):
-            tsw.cg_block(*port_args(st, 2.0), num_iters=1, **kw)
+    vm = a['v_mask']
+    for kw in ({'use_shrink': True}, {'want_curv_K': True}):
+        if 'want_curv_K' in kw:
+            tkw = dict(kw, nbr_f=st.ma.nbr_f)
+            jkw = dict(kw, nbr_f=jnp.asarray(a['nbr_f']))
+        else:
+            tkw = jkw = kw
+        ft, dt = tsw.cg_block(*port_args(st, 2.0), 1.0, num_iters=1,
+                              face_chunk=512, **tkw)
+        fj, dj = jsw.cg_block(*jax_args(a, 2.0), 1.0, num_iters=1,
+                              face_chunk=512, **jkw)
+        assert np.abs(ft.numpy() - np.asarray(fj))[vm].max() < 0.5
+        assert dt.S.shape == np.asarray(dj.S).shape
+        if 'want_curv_K' in kw:
+            Kj = np.asarray(dj.K)[vm]
+            np.testing.assert_allclose(dt.K.numpy()[vm], Kj, rtol=1e-3,
+                                       atol=1e-3 * np.abs(Kj).max())
+    with pytest.raises(NotImplementedError):
+        tsw.cg_block(*port_args(st, 2.0), num_iters=1, spmd_mesh=object())

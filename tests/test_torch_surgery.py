@@ -353,3 +353,64 @@ def test_chip_smoke_fit99_phase_on_cpu():
     for key in ('sort', 'pad', 'tables', 'remesh', 'short_edges',
                 'remove_necks', 'punch_holes'):
         assert wall[key] >= 0.0, key
+
+
+def test_repair_splits_pinch_points_the_jax_package_leaves():
+    """Two spheres share one vertex (a pinch point) and one sphere has a
+    hole.  The JAX package's repair closes the hole and returns before
+    its pinch split, leaving a non-manifold surface; the port's repair
+    always splits pinch points: two closed manifold spheres.  On every
+    other fixture of this file the two repairs agree bit for bit."""
+    from ch_shrinkwrap_tpu.mesh.core import TriangleMesh as JTri
+    from ch_shrinkwrap_torch.mesh.core import TriangleMesh as TTri
+    v, f = icosphere(1, radius=10.0)
+    n = len(v)
+    i = int(np.argmax(v[:, 0]))
+    # the second sphere: the first reflected through its vertex i, which
+    # both share; the reflection reverses the winding
+    ids = np.arange(n) + n
+    ids[i] = i
+    ids[i + 1:] -= 1
+    verts = np.vstack([v, np.delete(2 * v[i] - v, i, 0)]).astype(np.float32)
+    faces = np.vstack([f, ids[f][:, ::-1]]).astype(np.int32)
+    hole = np.array([int(np.argmin(v[:, 0]))])
+    out = {}
+    for name, cls in (('jax', JTri), ('port', TTri)):
+        m = cls(verts.copy(), faces.copy())
+        assert not m.is_manifold           # the pinch
+        m.unsafe_remove_vertices(hole)
+        m.repair()
+        out[name] = (bool(m.is_manifold), int(m.euler_characteristic),
+                     int(m.connected_components()[1]))
+    assert out['jax'] == (False, 3, 1)
+    assert out['port'] == (True, 4, 2)
+
+
+def test_neck_pass_drops_the_fragments_it_cuts_off():
+    """Flagging the ring around an edge's two fans cuts off those fans:
+    a closed 16-face piece outside the surface (lifted off it, so not
+    nested), which the JAX package keeps (two components) and the port
+    drops as debris (one sphere)."""
+    from ch_shrinkwrap_tpu.mesh.primitives import icosphere as jico
+    v, f = jico(3, radius=50.0)
+
+    def ring_of(S):
+        return set(np.unique(f[np.isin(f, list(S)).any(1)]).tolist())
+    a = 100
+    b = min(ring_of({a}) - {a})
+    piece = ring_of({a, b})
+    K = np.zeros(len(v))
+    K[sorted(ring_of(piece) - piece)] = 1.0   # above the high threshold
+    v = v.copy()
+    v[sorted(piece)] *= 1.2
+    out = {}
+    for name, cls, kw in (('jax', JMesh, {}), ('port', TMesh,
+                                                {'device': 'cpu'})):
+        m = cls(v.copy(), f.copy(), **kw)
+        m._curv_state = {'K': K.copy()}
+        m.remove_necks(-1e-3, 1e-2, defer_remesh=True)
+        _, n_comp = m.connected_components()
+        out[name] = (int(n_comp), int(m.euler_characteristic),
+                     bool(m.is_manifold))
+    assert out['jax'] == (2, 4, True)
+    assert out['port'] == (1, 2, True)
