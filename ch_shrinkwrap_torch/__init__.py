@@ -7,7 +7,8 @@ counterpart is easy to find:
 - ``mesh``    — host triangle mesh, remeshing, marching seed surface
                 (numpy + the native C++ topology engine in ``native``).
 - ``ops``     — device compute on torch tensors: normals, curvature,
-                padded mesh arrays, nearest-face correspondence, and the
+                padded mesh arrays, nearest-face correspondence (brute,
+                hash grid, blocked, windowed), and the
                 three hand-written CUDA kernels (``cuda_window``,
                 ``cuda_scatter``, ``cuda_gather``; sources in ``csrc/``,
                 built by ``ops/_build.py``).
@@ -26,6 +27,16 @@ counterpart is easy to find:
 - ``recipes`` — the user-facing recipe modules and the YAML runner.
 - ``utils``   — tracing and fit checkpoints (``checkpoint``, the JAX
                 package's ``.npz`` keys).
+- ``parallel`` — multi-device fits over ``torch.distributed``
+                (``sharding``): the cloud sharded over ranks in whole
+                256-point blocks, the face accumulators all-reduced.
+                ``sharded_fit(model, pts, sigma, n_devices=2)`` runs a
+                fit on two cards (NCCL);
+                ``devices=['cuda:0', 'cuda:0']`` puts both ranks on one
+                card (gloo), and a model on the CPU runs CPU ranks.
+- ``animation`` — the fit one iteration a frame (matplotlib renders, or
+                PLY meshes where matplotlib is absent).
+- ``visgui_modules`` — the PYMEVis menu hooks (``Plug``).
 - ``convert`` — carries fit state and whole models from numpy, or from
                 the JAX package's objects, into the port.
 

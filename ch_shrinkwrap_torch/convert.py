@@ -72,15 +72,29 @@ def state_from_numpy(positions, v_mask, faces, f_mask, nbr_v, nbr_f=None,
 
 def membrane_mesh_from(mesh, device='cuda'):
     """A port ``MembraneMesh`` on ``device`` with the vertices, faces,
-    fit parameters and cached cloud of ``mesh`` (any object with those
-    attributes, for example the JAX package's MembraneMesh)."""
+    fit parameters, correspondence method, device count and cached
+    cloud of ``mesh`` (any object with those attributes, for example
+    the JAX package's MembraneMesh: its ``'windowed_pallas'`` is the
+    port's ``'windowed'``, and a ``device_mesh`` becomes its device
+    count)."""
     from .models.membrane_mesh import MembraneMesh
+    from .solver.shrinkwrap import CORR_ALIASES
     from .utils.checkpoint import FIT_PARAMETERS
     out = MembraneMesh(np.asarray(mesh.vertices, np.float32),
                        np.asarray(mesh.faces, np.int32), device=device)
     for k in FIT_PARAMETERS:
         if hasattr(mesh, k):
             setattr(out, k, getattr(mesh, k))
+    method = getattr(mesh, 'corr_method', None)
+    if method is not None:
+        out.corr_method = method if method == 'auto' \
+            else CORR_ALIASES.get(method, method)
+    dm = getattr(mesh, 'device_mesh', None)
+    if dm is not None:
+        # an int, or a mesh of devices (the JAX package's jax Mesh, or
+        # the port's DeviceMesh)
+        out.device_mesh = dm if isinstance(dm, (int, np.integer)) \
+            else int(np.size(np.asarray(dm.devices, dtype=object)))
     pts = getattr(mesh, '_points', None)
     if pts is not None:
         out._points = np.asarray(pts)

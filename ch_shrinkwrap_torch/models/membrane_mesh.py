@@ -15,8 +15,9 @@ The public surface follows the JAX package: ``shrink_wrap`` with the
 (``shrink_weight > 0``), the ``'final'``, ``'two'`` and ``'bucketed'``
 capacity modes, curvature properties, the optimizer diagnostics
 (``S0..S3``, ``point_dis``, ``rms_point_sc``, ``point_influence``),
-``residual_histogram`` and ``distance_to_surface``.  Multi-device fits
-are not ported yet (they raise ``NotImplementedError``).
+``residual_histogram`` and ``distance_to_surface``.  With
+``device_mesh`` (an int or a ``parallel.sharding.DeviceMesh``) the fit
+shards the cloud over that many ranks (``parallel.sharding``).
 """
 
 from __future__ import annotations
@@ -35,7 +36,8 @@ from ..ops import curvature as _curv
 from ..ops import correspondence as _corr
 from ..ops import normals as _norm
 from ..ops.ordering import fit_point_order
-from ..solver.shrinkwrap import block_call
+from ..parallel import sharding
+from ..solver.shrinkwrap import CORR_ALIASES, block_call
 from ..utils.tracing import FitTrace
 
 logger = logging.getLogger(__name__)
@@ -115,9 +117,14 @@ class MembraneMesh(TriangleMesh):
         # block (cg_block want_curv_K)
         self.use_native_neck_k = True
         self.face_chunk = 2048
-        # correspondence: 'brute' (exact), 'windowed' (K1 + K2), or
+        # correspondence: 'brute' (exact), 'windowed' (K1 + K2; the JAX
+        # package's 'windowed_pallas' means the same), 'grid' (hash grid,
+        # cell 2x the mean edge), 'blocked' (per-block candidates), or
         # 'auto' (windowed once N*F crosses the brute-force budget)
         self.corr_method = 'auto'
+        # None: one process; an int or a parallel.sharding.DeviceMesh:
+        # shard the cloud over that many ranks
+        self.device_mesh = None
         # padded vertex count above which the gathers run through K3
         self.ring_gather_min_verts = 32768
 
@@ -612,9 +619,25 @@ class MembraneMesh(TriangleMesh):
             and (self.remesh_frequency <= max_iter)
         dr = ((self.delaunay_remesh_frequency != 0)
               and (self.delaunay_remesh_frequency <= max_iter))
-        if getattr(self, 'device_mesh', None) is not None:
-            raise NotImplementedError('multi-device fits are not ported '
-                                      'yet')
+        dmesh = sharding.mesh_for(getattr(self, 'device_mesh', None),
+                                  self.device)
+        if dmesh is not None:
+            self.device_mesh = dmesh
+            if dmesh.devices[0].type != self.device.type:
+                raise ValueError(f'device_mesh runs on {dmesh.devices[0]} '
+                                 f'but the model is on {self.device}')
+            if not sharding.in_group(dmesh):
+                # rank 0 is this process; every rank runs this fit on
+                # its slice of the cloud
+                kw = dict(kwargs, max_iter=max_iter, step_size=step_size,
+                          weights=weights)
+                return sharding.run_ranks(
+                    dmesh, lambda: self.opt_conjugate_gradient(
+                        points, sigma, **kw),
+                    sharding.fit_rank, (type(self),
+                                        sharding.host_state(self),
+                                        points, sigma, kw))
+        rank = None if dmesh is None else sharding.spmd_rank(dmesh)
         cap_mode = self.capacity_mode
         if cap_mode not in ('final', 'two', 'bucketed'):
             raise ValueError(f'unknown capacity_mode {cap_mode!r}')
@@ -665,6 +688,8 @@ class MembraneMesh(TriangleMesh):
         n_iter = int(min(max_iter, self.truncate_at))
 
         method = self.corr_method
+        if method != 'auto':
+            method = CORR_ALIASES.get(method, method)
         if method == 'auto':
             # windowed (K1 + K2) once brute force would cost more than
             # 2e9 point-face pairs; which of a kernel or its plain
@@ -731,18 +756,24 @@ class MembraneMesh(TriangleMesh):
                       and not (self.use_native_neck_k
                                and _native.get_lib() is not None))
 
-        if method == 'windowed':
+        if method in ('windowed', 'blocked'):
             order = fit_point_order(points)
             points = np.ascontiguousarray(points[order])
             sigma_inv = sigma_inv[order]
             res_weights = res_weights[order]
             self._points = points       # diagnostics follow this order
 
-        dev = self.device
-        pts_t = torch.from_numpy(points).to(dev)
-        sig_t = torch.from_numpy(np.ascontiguousarray(sigma_inv)).to(dev)
-        w_t = torch.from_numpy(np.ascontiguousarray(res_weights)).to(dev)
-        pmask = torch.ones(N, dtype=torch.bool, device=dev)
+        if dmesh is not None:
+            # this rank's slice of whole 256-point blocks
+            dev = dmesh.devices[rank]
+            pts_t, sig_t, w_t, pmask = sharding.shard_points(
+                dmesh, rank, points, sigma_inv, res_weights)
+        else:
+            dev = self.device
+            pts_t = torch.from_numpy(points).to(dev)
+            sig_t = torch.from_numpy(np.ascontiguousarray(sigma_inv)).to(dev)
+            w_t = torch.from_numpy(np.ascontiguousarray(res_weights)).to(dev)
+            pmask = torch.ones(N, dtype=torch.bool, device=dev)
 
         if self.trace is None:
             self.trace = FitTrace()
@@ -815,11 +846,19 @@ class MembraneMesh(TriangleMesh):
                 num_iters=ni_static, active_iters=n_it,
                 use_shrink=use_shrink,
                 face_chunk=self.face_chunk, corr_method=method,
+                cell_size=(float(2.0 * self._mean_edge_length)
+                           if method == 'grid' else 1.0),
                 face_nbrs=ma.face_nbrs, tables=tables,
                 nbr_f=ma.nbr_f if want_K else None, want_curv_K=want_K,
                 face_hcgc=(method == 'windowed' and tables is not None
                            and ma.positions.shape[0] > meshdata.HCGC_MIN_VP
-                           and uniform_weights))
+                           and uniform_weights),
+                spmd_mesh=dmesh)
+            if dmesh is not None:
+                # every rank goes on from rank 0's positions (and K)
+                sharding.broadcast_from_rank0(f_new, diag.K)
+                if j + n_it >= n_iter:
+                    diag = sharding.gather_diagnostics(diag, N)
             f_dev = f_new
             topo_dirty = False
             self._last_diag = diag
@@ -894,6 +933,11 @@ class MembraneMesh(TriangleMesh):
                     'mean length: %.2f resulting: %.2f (V=%d)',
                     j, n_iter, target_length, self._mean_edge_length,
                     self.vertices.shape[0])
+            if dmesh is not None:
+                t0 = time.time()
+                sharding.check_in_step(dmesh, self.vertices, self.faces,
+                                       where=f' after iteration {j}')
+                self.trace.record('in_step', j, time.time() - t0, self)
 
         logger.info('Shrinkwrapping complete in %d iterations (%s)',
                     j, self.trace.summary())

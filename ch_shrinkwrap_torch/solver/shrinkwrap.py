@@ -14,11 +14,16 @@ the block when it triggers.
 
 With ``corr_method='windowed'`` the nearest-face search runs through K1
 (``ops.cuda_window``) and the A^T accumulation through K2
-(``ops.cuda_scatter``).  With ``tables`` (``ops.meshdata.gather_tables``)
-the face-corner, one-ring and search-direction gathers run through K3
+(``ops.cuda_scatter``); 'grid' and 'blocked' are the JAX package's
+other two approximate searches, in plain torch.  With ``tables``
+(``ops.meshdata.gather_tables``) the face-corner, one-ring and
+search-direction gathers run through K3
 (``ops.cuda_gather``) and the faces -> vertices fold through its fused
 gather + masked sum.  On CPU tensors each kernel wrapper runs its
-plain PyTorch version.
+plain PyTorch version.  With ``spmd_mesh`` the block runs as one rank
+of a sharded fit (``parallel.sharding``): the point-axis work on the
+rank's slice of the cloud, with all-reduced face accumulators and
+small reductions.
 """
 
 from __future__ import annotations
@@ -27,12 +32,18 @@ from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..ops import correspondence as corr
 from ..ops import normals as _normals
 from ..ops.curvature import curvature_grad
 from ..ops.cuda_gather import row_gather, row_group_sum
 from ..ops.cuda_scatter import windowed_ah, windowed_ahw2
+from ..parallel.sharding import spmd_rank
+
+CORR_METHODS = ('brute', 'grid', 'blocked', 'windowed')
+# the JAX package's names for its production path
+CORR_ALIASES = {'windowed_pallas': 'windowed', 'auto': 'windowed'}
 
 
 class SolverDiagnostics(NamedTuple):
@@ -46,6 +57,7 @@ class SolverDiagnostics(NamedTuple):
     point_influence: torch.Tensor  # (Vp,) |A^T 1| per vertex
     d: torch.Tensor                # (N,) point->face distances
     K: Optional[torch.Tensor] = None
+    fi: Optional[torch.Tensor] = None   # (N,) i32 nearest face ids
 
 
 def _ncc_finish(f, vnormals, point_influence, sum_pos, ms, a_num):
@@ -135,9 +147,10 @@ def cg_block(positions, faces, f_mask, v_mask, nbr_v,
              points, sigma_inv, weights, point_mask,
              lam0, shrink_lam=0.0, num_iters=5,
              use_shrink=False, face_chunk=2048, stop_eps=1e-6,
-             corr_method='brute', face_nbrs=None, polish_iters=0,
-             tables=None, face_hcgc=False, active_iters=None,
-             nbr_f=None, want_curv_K=False, spmd_mesh=None):
+             corr_method='brute', cell_size=1.0, face_nbrs=None,
+             polish_iters=0, tables=None, face_hcgc=False,
+             active_iters=None, nbr_f=None, want_curv_K=False,
+             spmd_mesh=None):
     """Run up to ``num_iters`` CG iterations; returns (new_positions,
     SolverDiagnostics).
 
@@ -150,7 +163,9 @@ def cg_block(positions, faces, f_mask, v_mask, nbr_v,
         subspace solve
     point_mask : (N,) bool padding mask of the point cloud
     lam0 : regularization weight (= step_size * kc / 2)
-    corr_method : 'brute' (exact) or 'windowed' (K1 + K2)
+    corr_method : 'brute' (exact), 'windowed' (K1 + K2; the JAX names
+        'windowed_pallas' and 'auto' mean the same), 'grid' (hash grid
+        of cell ``cell_size``) or 'blocked' (per-block candidates)
     tables : optional ``GatherTables`` routing the gathers through K3
     face_hcgc : contract the subspace normal equations face-side (needs
         'windowed' and strictly positive weights on every coordinate)
@@ -160,11 +175,18 @@ def cg_block(positions, faces, f_mask, v_mask, nbr_v,
         classic-CG memory direction
     want_curv_K : with ``nbr_f``, return the Gaussian curvature at the
         final positions as ``diag.K``
+    spmd_mesh : a ``parallel.sharding.DeviceMesh`` inside its process
+        group: ``points``, ``sigma_inv``, ``weights`` and ``point_mask``
+        are this rank's ``shard_points`` slice (whole 256-point blocks);
+        the face accumulators (and W2), the point-side normal equations
+        and the residual norm are all-reduced, and every rank takes rank
+        0's orthogonality statistic, so all ranks stop together.  The
+        per-point diagnostics stay rank-local.
     """
-    if spmd_mesh is not None:
-        raise NotImplementedError('spmd_mesh is not ported yet')
-    if corr_method not in ('brute', 'windowed'):
+    corr_method = CORR_ALIASES.get(corr_method, corr_method)
+    if corr_method not in CORR_METHODS:
         raise ValueError(f'unknown corr_method {corr_method!r}')
+    rank = None if spmd_mesh is None else spmd_rank(spmd_mesh)
     if face_hcgc and corr_method != 'windowed':
         raise ValueError("face_hcgc requires corr_method='windowed'")
     dev = positions.device
@@ -205,7 +227,8 @@ def cg_block(positions, faces, f_mask, v_mask, nbr_v,
     diag_state = (torch.zeros((Vp, 3, s_size), dtype=f32, device=dev),
                   torch.zeros((N, 3), dtype=f32, device=dev),
                   torch.zeros((Vp,), dtype=f32, device=dev),
-                  torch.zeros((N,), dtype=f32, device=dev))
+                  torch.zeros((N,), dtype=f32, device=dev),
+                  torch.zeros((N,), dtype=torch.int32, device=dev))
 
     for it in range(num_iters):
         if halted or it >= n_act:
@@ -226,6 +249,12 @@ def cg_block(positions, faces, f_mask, v_mask, nbr_v,
             dmean, fi, meta = corr.nearest_face_windowed(
                 points, centers, f_mask, return_meta=True,
                 starts=corr_starts, prep=corr_prep, sub_ids=corr_sub)
+        elif corr_method == 'grid':
+            dmean, fi = corr.nearest_face_grid(points, centers, f_mask,
+                                               cell_size)
+        elif corr_method == 'blocked':
+            # expects fit_point_order-sorted points
+            dmean, fi = corr.nearest_face_blocked(points, centers, f_mask)
         else:
             dmean, fi = corr.nearest_face_bruteforce(
                 points, centers, f_mask, face_chunk=face_chunk)
@@ -264,6 +293,14 @@ def cg_block(positions, faces, f_mask, v_mask, nbr_v,
             per_corner = (w[..., None] * ah_in[:, None, :]).reshape(N, 12)
             face_acc = torch.zeros((Fp, 12), dtype=f32, device=dev)
             face_acc.index_add_(0, fi_l, per_corner)
+        if rank is not None:
+            # the ranks' accumulators of their own points: one all-reduce
+            if W2 is None:
+                dist.all_reduce(face_acc)
+            else:
+                acc = torch.cat([face_acc, W2], dim=1)
+                dist.all_reduce(acc)
+                face_acc, W2 = acc[:, :12], acc[:, 12:]
         fused = torch.cat([vn_corners.reshape(Fp * 3, 3),
                            face_acc.reshape(Fp * 3, 4)], dim=1)  # (3Fp, 7)
         out7 = _fold(fused, faces, Vp, tables)
@@ -335,6 +372,25 @@ def cg_block(positions, faces, f_mask, v_mask, nbr_v,
             res_m = res * el_mask
             Hc = torch.einsum('nik,nil->kl', ASm, ASm)
             Gc = torch.einsum('nik,ni->k', ASm, res_m)
+        if rank is not None:
+            # the small reductions in one all-reduce: the point-side
+            # normal equations (face-side ones are already global), the
+            # residual's sum of squares, and rank 0's statistic
+            test_t = torch.as_tensor(test, dtype=f32, device=dev)
+            parts = [(res * res).sum()[None],
+                     test_t[None] * float(rank == 0)]
+            if W2 is None:
+                parts += [Hc.reshape(-1), Gc]
+            small = torch.cat(parts)
+            dist.all_reduce(small)
+            if W2 is None:
+                Hc = small[2:2 + s_size * s_size].reshape(s_size, s_size)
+                Gc = small[2 + s_size * s_size:]
+            stats = torch.stack([small[1], torch.sqrt(small[0])])
+        else:
+            stats = torch.stack([torch.as_tensor(test, dtype=f32,
+                                                 device=dev),
+                                 torch.linalg.norm(res)])
 
         # L = identity for every prior: Hw = S^T S, Gw = -S^T pref
         Sv = S * vmask3[..., None]
@@ -356,9 +412,7 @@ def cg_block(positions, faces, f_mask, v_mask, nbr_v,
         # still reports its residual but applies no step
         a_, b_, c3 = tests_hist
         halted = (c3 < b_) and (b_ < a_) and (a_ < stop_eps)
-        test_v, res_v = torch.stack(
-            [torch.as_tensor(test, dtype=f32, device=dev),
-             torch.linalg.norm(res)]).tolist()
+        test_v, res_v = stats.tolist()
         ress.append(res_v)
         if halted:
             tests.append(float('nan'))
@@ -368,7 +422,7 @@ def cg_block(positions, faces, f_mask, v_mask, nbr_v,
             S_last = fnew - f
             f = fnew
             tests_hist = [tests_hist[1], tests_hist[2], test_v]
-        diag_state = (S, res, point_influence, dmean)
+        diag_state = (S, res, point_influence, dmean, fi)
 
     K_out = None
     if want_curv_K and nbr_f is not None:
@@ -376,12 +430,12 @@ def cg_block(positions, faces, f_mask, v_mask, nbr_v,
         # neck diagnostic (pyx:1516-1527)
         K_out = curvature_grad(f, faces, f_mask, v_mask, nbr_v, nbr_f).K
 
-    S_f, res_f, pi_f, d_f = diag_state
+    S_f, res_f, pi_f, d_f, fi_f = diag_state
     diags = SolverDiagnostics(
         tests=torch.tensor(tests, dtype=f32),
         ress=torch.tensor(ress, dtype=f32),
         n_done=torch.tensor(done), S=S_f, res=res_f,
-        point_influence=pi_f, d=d_f, K=K_out)
+        point_influence=pi_f, d=d_f, K=K_out, fi=fi_f)
     return f, diags
 
 
@@ -389,7 +443,7 @@ def block_call(positions, faces, f_mask, v_mask, nbr_v,
                points, sigma_inv, weights, point_mask,
                lam0, shrink_lam, *, num_iters, active_iters,
                use_shrink, face_chunk, corr_method, face_nbrs,
-               tables=None, nbr_f=None, want_curv_K=False,
+               cell_size=1.0, tables=None, nbr_f=None, want_curv_K=False,
                face_hcgc=False, spmd_mesh=None):
     """The one call shape of ``cg_block`` the fit loop uses."""
     return cg_block(
@@ -397,6 +451,7 @@ def block_call(positions, faces, f_mask, v_mask, nbr_v,
         points, sigma_inv, weights, point_mask,
         lam0, shrink_lam, num_iters=num_iters, active_iters=active_iters,
         use_shrink=use_shrink, face_chunk=face_chunk,
-        corr_method=corr_method, face_nbrs=face_nbrs, tables=tables,
+        corr_method=corr_method, cell_size=cell_size,
+        face_nbrs=face_nbrs, tables=tables,
         nbr_f=nbr_f, want_curv_K=want_curv_K, face_hcgc=face_hcgc,
         spmd_mesh=spmd_mesh)

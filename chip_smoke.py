@@ -38,8 +38,21 @@ Phase sweep runs the evaluation harness on configs/test_ersim.yaml
 the right topology (euler 0, one manifold component), and a second
 evaluate in the same directory must skip it.
 
-Phases run in order (env, build, kernels, cg_block, fit, fit99,
-fit.punch, image, sweep), each under a watchdog deadline: a phase that
+Phase shard runs the bench configuration's CG block through
+sharded_cg_block at world size 1 (NCCL) and 2 against the one-process
+block (first-iteration face ids equal, first-iteration positions within
+5e-3), then the 20-iteration fit through sharded_fit over two ranks
+(two cards over NCCL where there are two, else both on cuda:0 over
+gloo): the same gates as the fit, within 0.2 nm of the one-process R,
+K1 and K2 launched once an iteration on rank 0, and the ranks found in
+step after every block.  Phase corr holds the hash-grid and blocked
+searches to the exact one on the JAX suite's fixture (ids agree > 0.98,
+distances within a cell), reads their agreement at the fit's scale,
+requires the card's ids to equal the CPU's, and runs the 20-iteration
+fit with each.
+
+Phases run in order (env, build, kernels, cg_block, fit, shard, corr,
+fit99, fit.punch, image, sweep), each under a watchdog deadline: a phase that
 overruns
 prints its name and elapsed time and the process exits non-zero.  Any
 failed check exits non-zero.  The second-to-last line is the kernel
@@ -61,12 +74,12 @@ import time
 
 import numpy as np
 
-# per-phase deadlines in seconds; they add up to 1050, so the whole
-# run ends inside 1200 s (the expected total on an H100 is a few
-# minutes)
-DEADLINES = {'env': 30, 'build': 120, 'kernels': 120, 'cg_block': 45,
-             'fit': 150, 'fit99': 120, 'punch': 60, 'image': 165,
-             'sweep': 240}
+# per-phase deadlines in seconds, each about twice the phase's slowest
+# run on an H100 or more; they add up to 1150, so the whole run ends
+# inside 1200 s (the expected total is about 8 minutes)
+DEADLINES = {'env': 15, 'build': 40, 'kernels': 100, 'cg_block': 20,
+             'fit': 110, 'shard': 110, 'corr': 390, 'fit99': 45,
+             'punch': 40, 'image': 100, 'sweep': 180}
 
 # H100 SXM peaks (NVIDIA data sheet) for the bound column
 HBM_BYTES_PER_S = 3.35e12
@@ -544,14 +557,16 @@ def phase_kernels(device='cuda', n_points=N_POINTS, mesh_fn=_kernel_mesh,
                  plain_ms=timer(lambda: cuda_gather.row_gather_plain(
                      src, idx))['ms'],
                  library_ms=timer(lambda: torch.index_select(
-                     src, 0, idx64))['ms'])
+                     src, 0, idx64))['ms'],
+                 bound_ms=bound_ms(nbytes(src, idx, out), 0.0)[0])
         per_call[key] = {k: round(v, 5) for k, v in r.items()}
         if key == 'S12':
             # the shrink prior's S, beside the 9-column row; the K3 row
             # stays one iteration without the prior
             continue
         for k, v in r.items():
-            k3[k] += v
+            if k != 'bound_ms':
+                k3[k] += v
         k3['bytes'] += nbytes(src, idx, out)
     bms, bby = bound_ms(k3['bytes'], 0.0)
     recs['K3'] = dict(
@@ -608,18 +623,15 @@ def phase_kernels(device='cuda', n_points=N_POINTS, mesh_fn=_kernel_mesh,
     return recs
 
 
-def phase_cg_block(device='cuda', n_points=N_POINTS, ico_sub=7, rf=5,
-                   n_blocks=3):
-    """The bench configuration: 1e6 points, icosphere(7) at r = 550,
-    rf = 5, n_blocks timed blocks after one warm-up block, then one
-    block under torch.profiler.  Returns (readings, profiler table)."""
+def bench_inputs(device='cuda', n_points=N_POINTS, ico_sub=7):
+    """The bench configuration's block inputs: the sorted 1e6-point
+    cloud and icosphere(7) at r = 550, padded as the fit pads."""
     import torch
+    from types import SimpleNamespace
     from ch_shrinkwrap_torch.mesh.core import TriangleMesh
     from ch_shrinkwrap_torch.mesh.primitives import icosphere
     from ch_shrinkwrap_torch.ops import meshdata
     from ch_shrinkwrap_torch.ops.ordering import fit_point_order
-    from ch_shrinkwrap_torch.solver.shrinkwrap import cg_block
-    from ch_shrinkwrap_torch.utils.tracing import device_profile
     dev = torch.device(device)
     pts, sig = sphere_cloud(n_points)
     pts = np.ascontiguousarray(pts[fit_point_order(pts)])
@@ -632,18 +644,31 @@ def phase_cg_block(device='cuda', n_points=N_POINTS, ico_sub=7, rf=5,
                             device=dev)
     tables = meshdata.gather_tables(ma) \
         if ma.positions.shape[0] > 32768 else None
-    pts_t = torch.from_numpy(pts).to(dev)
-    sig_t = torch.from_numpy(sigma_inv).to(dev)
-    w_t = torch.from_numpy(weights).to(dev)
-    pm = torch.ones(n_points, dtype=torch.bool, device=dev)
+    return SimpleNamespace(
+        dev=dev, ma=ma, tables=tables, pts=pts, sigma_inv=sigma_inv,
+        weights=weights, pts_t=torch.from_numpy(pts).to(dev),
+        sig_t=torch.from_numpy(sigma_inv).to(dev),
+        w_t=torch.from_numpy(weights).to(dev),
+        pm=torch.ones(n_points, dtype=torch.bool, device=dev),
+        face_hcgc=ma.positions.shape[0] > meshdata.HCGC_MIN_VP)
+
+
+def phase_cg_block(device='cuda', n_points=N_POINTS, ico_sub=7, rf=5,
+                   n_blocks=3):
+    """The bench configuration: 1e6 points, icosphere(7) at r = 550,
+    rf = 5, n_blocks timed blocks after one warm-up block, then one
+    block under torch.profiler.  Returns (readings, profiler table)."""
+    import torch
+    from ch_shrinkwrap_torch.solver.shrinkwrap import cg_block
+    from ch_shrinkwrap_torch.utils.tracing import device_profile
+    b = bench_inputs(device, n_points, ico_sub)
+    dev, ma = b.dev, b.ma
 
     def block(pos):
         return cg_block(pos, ma.faces, ma.f_mask, ma.v_mask, ma.nbr_v,
-                        pts_t, sig_t, w_t, pm, 2.0, num_iters=rf,
+                        b.pts_t, b.sig_t, b.w_t, b.pm, 2.0, num_iters=rf,
                         corr_method='windowed', face_nbrs=ma.face_nbrs,
-                        tables=tables,
-                        face_hcgc=ma.positions.shape[0]
-                        > meshdata.HCGC_MIN_VP)
+                        tables=b.tables, face_hcgc=b.face_hcgc)
 
     f1, _ = block(ma.positions)
     if dev.type == 'cuda':
@@ -700,12 +725,14 @@ def plain_versions():
 
 
 def phase_fit(device='cuda', n_points=N_POINTS, grid_n=48, iters=20,
-              radius=RADIUS):
+              radius=RADIUS, corr_method='auto', devices=None):
     """The no-surgery fit (20 iterations by default) from the marching
-    seed, as a user runs it."""
+    seed, as a user runs it; with ``devices``, the same fit through
+    ``sharded_fit`` with one rank a device."""
     import torch
     from ch_shrinkwrap_torch.mesh.marching import wrap_start
     from ch_shrinkwrap_torch.models import MembraneMesh
+    from ch_shrinkwrap_torch.parallel.sharding import sharded_fit
     pts, sig = sphere_cloud(n_points, radius=radius)
     t0 = time.time()
     surf = wrap_start(pts, offset=25.0, grid_n=grid_n)
@@ -714,24 +741,39 @@ def phase_fit(device='cuda', n_points=N_POINTS, grid_n=48, iters=20,
         mesh=surf, kc=1.0, step_size=20.0, max_iter=iters,
         remesh_frequency=5, delaunay_remesh_frequency=0,
         neck_first_iter=-1, device=device)
+    mesh.corr_method = corr_method
     V0 = int(mesh.vertices.shape[0])
     t1 = time.time()
-    mesh.shrink_wrap(pts, sig, method='conjugate_gradient',
-                     minimum_edge_length=5.0)
+    if devices is None:
+        mesh.shrink_wrap(pts, sig, method='conjugate_gradient',
+                         minimum_edge_length=5.0)
+    else:
+        sharded_fit(mesh, pts, sig, devices=devices,
+                    method='conjugate_gradient', minimum_edge_length=5.0)
     if torch.device(device).type == 'cuda':
         torch.cuda.synchronize()
     t_fit = time.time() - t1
     r = np.linalg.norm(mesh.vertices, axis=1)
     _, n_comp = mesh.connected_components()
-    return dict(seed_s=t_seed, fit_s=t_fit, V0=V0,
-                V=int(mesh.vertices.shape[0]),
-                R_mean=float(r.mean()), R_std=float(r.std()),
-                euler=int(mesh.euler_characteristic),
-                manifold=bool(mesh.is_manifold), components=int(n_comp),
-                method=mesh._last_corr_method,
-                trace=[(rec.kind, rec.iteration, round(rec.wall_time, 3),
-                        rec.n_vertices, rec.extra.get('v_cap', ''))
-                       for rec in mesh.trace.records])
+    out = dict(seed_s=t_seed, fit_s=t_fit, V0=V0,
+               V=int(mesh.vertices.shape[0]),
+               R_mean=float(r.mean()), R_std=float(r.std()),
+               euler=int(mesh.euler_characteristic),
+               manifold=bool(mesh.is_manifold), components=int(n_comp),
+               method=mesh._last_corr_method,
+               trace=[(rec.kind, rec.iteration, round(rec.wall_time, 3),
+                       rec.n_vertices, rec.extra.get('v_cap', ''))
+                      for rec in mesh.trace.records])
+    if devices is not None:
+        dm = mesh.device_mesh
+        out.update(backend=dm.backend,
+                   devices=[str(d) for d in dm.devices],
+                   in_step_checks=sum(rec.kind == 'in_step'
+                                      for rec in mesh.trace.records),
+                   blocks=sum(rec.kind == 'cg_block'
+                              for rec in mesh.trace.records),
+                   diag_rows=int(mesh._last_diag.res.shape[0]))
+    return out
 
 
 def check_fit(fit, radius=RADIUS, mean_tol=1.5, tag='fit'):
@@ -995,6 +1037,239 @@ def check_sweep(sw, euler=0):
           'finished entry')
 
 
+def shard_devices():
+    """Two ranks: one a card where the machine has two (NCCL), else
+    both on cuda:0 (gloo)."""
+    import torch
+    if torch.cuda.device_count() >= 2:
+        return ['cuda:0', 'cuda:1']
+    return ['cuda:0', 'cuda:0']
+
+
+def phase_shard_block(rf=5):
+    """The bench configuration's CG block through ``sharded_cg_block``
+    at world size 1 (NCCL) and 2, against the one-process block.  Gates:
+    the first-iteration face ids equal and the first-iteration positions
+    within 5e-3 (tests/test_parallel.py:37-38: only the reduction order
+    differs), the same number of iterations done after ``rf``, and the
+    mean radius after ``rf`` within 0.2 nm (the fit phase's bound for
+    atomic-sum order).  The largest position difference after ``rf``
+    is read beside that of a second one-process run: K2's float atomics
+    make two runs differ, and a point whose nearest face flips moves a
+    vertex.  World size 2 runs the face-side normal equations, so W2
+    is all-reduced too."""
+    from ch_shrinkwrap_torch.parallel.sharding import (make_device_mesh,
+                                                       sharded_cg_block)
+    from ch_shrinkwrap_torch.solver.shrinkwrap import cg_block
+    b = bench_inputs()
+    ma = b.ma
+    N = b.pts.shape[0]
+    vm = ma.v_mask.bool()
+
+    def one(num_iters, face_hcgc):
+        return cg_block(ma.positions, ma.faces, ma.f_mask, ma.v_mask,
+                        ma.nbr_v, b.pts_t, b.sig_t, b.w_t, b.pm, 2.0,
+                        num_iters=num_iters, corr_method='windowed',
+                        face_nbrs=ma.face_nbrs, tables=b.tables,
+                        face_hcgc=face_hcgc)
+
+    def r_mean(f):
+        return float(f[vm].norm(dim=1).mean())
+
+    out = {}
+    for devices, hcgc in ((['cuda:0'], b.face_hcgc),
+                          (shard_devices(), True)):
+        mesh = make_device_mesh(len(devices), devices)
+        kw = dict(lam0=2.0, corr_method='windowed', face_nbrs=ma.face_nbrs,
+                  tables=True, face_hcgc=hcgc)
+        f_first, first = one(1, hcgc)
+        f_one, d_one = one(rf, hcgc)
+        f_one2, _ = one(rf, hcgc)
+        f_s1, e_s = sharded_cg_block(mesh, ma, b.pts, b.sigma_inv,
+                                     b.weights, num_iters=1, **kw)
+        t0 = time.time()
+        f_s, d_s = sharded_cg_block(mesh, ma, b.pts, b.sigma_inv,
+                                    b.weights, num_iters=rf, **kw)
+        wall = time.time() - t0
+        n_ids = int((e_s.fi[:N] != first.fi).sum())
+        err1 = float((f_s1 - f_first).abs().max())
+        d_r = abs(r_mean(f_s) - r_mean(f_one))
+        key = f'ws{mesh.world_size}'
+        out[key] = dict(backend=mesh.backend, face_hcgc=hcgc,
+                        ids_differ=n_ids, first_max_abs_dpos=err1,
+                        n_done=int(d_s.n_done), n_done_one=int(d_one.n_done),
+                        dR=d_r, max_abs_dpos=float((f_s - f_one).abs().max()),
+                        one_vs_one_max_abs_dpos=float(
+                            (f_one2 - f_one).abs().max()),
+                        wall_s=wall)
+        check(n_ids == 0, f'shard {key}: {n_ids} first-iteration face ids '
+              f'differ from the one-process block')
+        check(err1 < 5e-3, f'shard {key}: first-iteration positions differ '
+              f'by {err1} >= 5e-3')
+        check(int(d_s.n_done) == int(d_one.n_done),
+              f'shard {key}: {int(d_s.n_done)} iterations done, one '
+              f'process {int(d_one.n_done)}')
+        check(d_r < 0.2, f'shard {key}: |dR| = {d_r} nm after {rf} '
+              f'iterations')
+    return out
+
+
+def check_shard_fit(fit, one, launches, iters=20):
+    check_fit(fit, mean_tol=SIGMA, tag='shard')
+    d_r = abs(fit['R_mean'] - one['R_mean'])
+    check(d_r < 0.2, f'shard: |dR| to the one-process fit = {d_r} nm')
+    check(fit['method'] == one['method'],
+          f"shard: method {fit['method']}, one process {one['method']}")
+    check(fit['in_step_checks'] == fit['blocks'],
+          f"shard: {fit['in_step_checks']} in-step checks for "
+          f"{fit['blocks']} blocks")
+    check(fit['diag_rows'] == N_POINTS,
+          f"shard: {fit['diag_rows']} diagnostic rows, not {N_POINTS}")
+    for key in ('K1', 'K2'):
+        check(launches[key] == iters,
+              f'shard: {key} launched {launches[key]} times on rank 0, '
+              f'not {iters}')
+    for key, n in launches.items():
+        check(n > 0, f'{key} was not launched on rank 0 of the shard fit')
+    return d_r
+
+
+def check_corr_fit(fit, method):
+    check(fit['method'] == method,
+          f"corr: the {method} fit ran {fit['method']}")
+    check(abs(fit['R_mean'] - RADIUS) < SIGMA,
+          f"{method} fit |R - {RADIUS}| = {abs(fit['R_mean'] - RADIUS)} "
+          f">= {SIGMA}")
+    check(fit['euler'] == 2, f"{method} fit euler {fit['euler']}")
+    check(fit['manifold'], f'{method} fit mesh not manifold')
+
+
+def jax_suite_corr_case(device):
+    """tests/test_solver.py:38-73's fixture: icosphere(4) at R = 50, 5000
+    points within a few nm, 100 far points, cell 2 x the mean edge."""
+    import torch
+    from ch_shrinkwrap_torch.mesh.core import TriangleMesh
+    from ch_shrinkwrap_torch.mesh.primitives import icosphere
+    from ch_shrinkwrap_torch.ops import meshdata
+    rng = np.random.default_rng(3)
+    v, f = icosphere(4, radius=50.0)
+    mesh = TriangleMesh(v, f)
+    ma = meshdata.from_mesh(mesh, quantum=256, device=device)
+    d = rng.normal(size=(5000, 3))
+    d /= np.linalg.norm(d, axis=1)[:, None]
+    pts = (d * 50.0 + rng.normal(scale=3.0, size=d.shape)).astype(np.float32)
+    far = (d[:100] * 200.0).astype(np.float32)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    return (t(pts), t(far), ma.positions[ma.faces.long()].mean(1), ma.f_mask,
+            2.0 * mesh._mean_edge_length)
+
+
+def phase_corr(device='cuda', n_run=65_536, n_cpu=16_384, margin=40.0):
+    """The hash-grid and blocked searches on the card.  On the JAX
+    suite's fixture, the suite's bounds against the exact search (ids
+    agree > 0.98, |dd| < cell, far points within 5 nm) for both.  On the
+    kernels phase's mesh and a contiguous run of ``n_run`` points of the
+    sorted cloud, the agreement with the exact search (over the faces
+    within ``margin`` of the run) is read, not gated (both packages'
+    searches give these ids), and on the run's first ``n_cpu`` points
+    the card's ids equal the port's CPU ids.  It also counts the grid's
+    hash buckets: the occupied cells, the buckets they fall into, and
+    the faces in buckets past the 32-face cap.  Runs on the CPU as well
+    (``device='cpu'``, minutes)."""
+    import torch
+    from ch_shrinkwrap_torch.ops import correspondence as corr
+    from ch_shrinkwrap_torch.ops.ordering import fit_point_order
+    dev = torch.device(device)
+
+    def sync():
+        if dev.type == 'cuda':
+            torch.cuda.synchronize()
+
+    def timed(fn):
+        sync()
+        t0 = time.time()
+        out = fn()
+        sync()
+        return out, time.time() - t0
+
+    out = {}
+    pts, far, centers, fm, cell = jax_suite_corr_case(dev)
+    order = torch.from_numpy(fit_point_order(pts.cpu().numpy())).to(dev)
+    db, ib = corr.nearest_face_bruteforce(pts, centers, fm)
+    dg, ig = corr.nearest_face_grid(pts, centers, fm, cell)
+    dk, ik = corr.nearest_face_blocked(pts[order], centers, fm)
+    dbf, _ = corr.nearest_face_bruteforce(far, centers, fm)
+    dgf, _ = corr.nearest_face_grid(far, centers, fm, cell)
+    suite = dict(cell=cell,
+                 grid_agree=float((ig == ib).float().mean()),
+                 grid_max_dd=float((dg - db).abs().max()),
+                 grid_far_lo=float((dgf - dbf).min()),
+                 grid_far_hi=float((dgf - dbf).max()),
+                 blocked_agree=float((ik == ib[order]).float().mean()),
+                 blocked_max_dd=float((dk - db[order]).abs().max()))
+    out['suite'] = suite
+    check(suite['grid_agree'] > 0.98,
+          f"corr: grid agrees on {suite['grid_agree']} <= 0.98")
+    check(suite['grid_max_dd'] < cell,
+          f"corr: grid |dd| {suite['grid_max_dd']} >= cell {cell}")
+    check(suite['grid_far_lo'] >= -1e-3 and suite['grid_far_hi'] <= 5.0,
+          f"corr: far points off by {suite['grid_far_lo']} .. "
+          f"{suite['grid_far_hi']}")
+    check(suite['blocked_agree'] > 0.98,
+          f"corr: blocked agrees on {suite['blocked_agree']} <= 0.98")
+    check(suite['blocked_max_dd'] < cell,
+          f"corr: blocked |dd| {suite['blocked_max_dd']} >= cell {cell}")
+
+    pts_np, _ = sphere_cloud()
+    pts_np = pts_np[fit_point_order(pts_np)]
+    k0 = (len(pts_np) - n_run) // 2
+    run = torch.from_numpy(np.ascontiguousarray(pts_np[k0:k0 + n_run]))
+    mesh, ma = _kernel_mesh(dev)
+    centers = ma.positions[ma.faces.long()].mean(1)
+    cell = 2.0 * mesh._mean_edge_length
+    p = run.to(dev)
+    lo, hi = p.min(0).values - margin, p.max(0).values + margin
+    near = torch.nonzero(((centers >= lo) & (centers <= hi)).all(1)
+                         & ma.f_mask)[:, 0]
+    (db, ib), t_b = timed(lambda: corr.nearest_face_bruteforce(
+        p, centers[near], ma.f_mask[near], point_block=4096,
+        face_chunk=16384))
+    ib = near[ib.long()]
+    check(float(db.max()) < margin, f'corr: a nearest face lies beyond '
+          f'the {margin} nm margin ({float(db.max())})')
+    (dg, ig), t_g = timed(lambda: corr.nearest_face_grid(
+        p, centers, ma.f_mask, cell))
+    (dk, ik), t_k = timed(lambda: corr.nearest_face_blocked(
+        p, centers, ma.f_mask))
+    c_cpu, fm_cpu = centers.cpu(), ma.f_mask.cpu()
+    differ = {}
+    for name, fn, args in (('grid', corr.nearest_face_grid, (cell,)),
+                           ('blocked', corr.nearest_face_blocked, ())):
+        _, i_card = fn(p[:n_cpu], centers, ma.f_mask, *args)
+        _, i_cpu = fn(run[:n_cpu], c_cpu, fm_cpu, *args)
+        differ[name] = int((i_card.cpu() != i_cpu).sum())
+    n_g, n_k = differ['grid'], differ['blocked']
+    inv_h = torch.tensor(1.0) / torch.tensor(float(cell))
+    cells = torch.floor(c_cpu[fm_cpu] * inv_h).int()
+    _, per_bucket = torch.unique(corr._cell_hash(cells, 1 << 18),
+                                 return_counts=True)
+    out['fit_scale'] = dict(
+        n_points=n_run, faces_searched=int(near.numel()), cell=cell,
+        faces=int(fm_cpu.sum()),
+        cells=int(torch.unique(cells, dim=0).shape[0]),
+        buckets=int(per_bucket.numel()),
+        faces_past_cap=int(per_bucket[per_bucket > 32].sum()),
+        grid_agree=float((ig == ib).float().mean()),
+        grid_max_dd=float((dg - db).abs().max()),
+        blocked_agree=float((ik == ib).float().mean()),
+        blocked_max_dd=float((dk - db).abs().max()),
+        grid_card_vs_cpu_differ=n_g, blocked_card_vs_cpu_differ=n_k,
+        brute_s=t_b, grid_s=t_g, blocked_s=t_k)
+    check(n_g == 0, f'corr: {n_g} grid ids differ between card and CPU')
+    check(n_k == 0, f'corr: {n_k} blocked ids differ between card and CPU')
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1059,6 +1334,36 @@ def main():
         conv.pop('trace')
         phase_line('fit.39it', time.time() - t0, **conv)
         check_fit(conv, tag='39-iteration fit')
+    with Watchdog('shard', DEADLINES['shard']):
+        t0 = time.time()
+        for key, rec in phase_shard_block().items():
+            phase_line(f'shard.block.{key}', 0.0, **rec)
+        t1 = time.time()
+        for w in wrappers.values():
+            w.launches = 0
+        sh = phase_fit(devices=shard_devices())
+        launches_sh = {k: w.launches for k, w in wrappers.items()}
+        trace = sh.pop('trace')
+        for rec in trace:
+            print('  trace:', *rec, flush=True)
+        # a reading, not a claim: two ranks on one card share it
+        phase_line('shard.fit', time.time() - t1, launches=launches_sh,
+                   rank0_fit_s=sh['fit_s'], one_process_fit_s=fit['fit_s'],
+                   dR_one_process=abs(sh['R_mean'] - fit['R_mean']), **sh)
+        check_shard_fit(sh, fit, launches_sh)
+        phase_line('shard', time.time() - t0)
+    with Watchdog('corr', DEADLINES['corr']):
+        t0 = time.time()
+        cr = phase_corr()
+        phase_line('corr.suite', 0.0, **cr['suite'])
+        phase_line('corr.fit_scale', 0.0, **cr['fit_scale'])
+        for method in ('grid', 'blocked'):
+            t1 = time.time()
+            cf = phase_fit(corr_method=method)
+            cf.pop('trace')
+            phase_line(f'corr.fit.{method}', time.time() - t1, **cf)
+            check_corr_fit(cf, method)
+        phase_line('corr', time.time() - t0)
     with Watchdog('fit99', DEADLINES['fit99']):
         t0 = time.time()
         for w in wrappers.values():

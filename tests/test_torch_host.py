@@ -175,6 +175,10 @@ _PORT_MODULES = [
     'ch_shrinkwrap_torch.utils.checkpoint', 'ch_shrinkwrap_torch.recipes',
     'ch_shrinkwrap_torch.recipes.surface_fitting',
     'ch_shrinkwrap_torch.recipes.surface_feature_extraction',
+    'ch_shrinkwrap_torch.parallel', 'ch_shrinkwrap_torch.parallel.sharding',
+    'ch_shrinkwrap_torch.animation', 'ch_shrinkwrap_torch.visgui_modules',
+    'ch_shrinkwrap_torch.visgui_modules.shrinkwrap',
+    'ch_shrinkwrap_torch.visgui_modules.surface_feature_extraction',
     'ch_shrinkwrap_torch.recipes.simulation',
 ]
 
@@ -265,6 +269,15 @@ def test_entry_points_default_to_cuda():
         assert inspect.signature(fn).parameters['device'].default == 'cuda'
     for name in ('ShrinkwrapMembrane', 'ImageShrinkwrapMembrane'):
         assert MODULE_REGISTRY[name]().device == 'cuda'
+    # a device mesh is CUDA cards unless CPU ranks are asked for: with
+    # no card it raises instead of running on the CPU
+    from ch_shrinkwrap_torch.parallel import sharding
+    assert MembraneMesh(v, f).device_mesh is None
+    if not torch.cuda.is_available():
+        with pytest.raises(ValueError, match='CUDA'):
+            sharding.make_device_mesh(1)
+        with pytest.raises(ValueError, match='CUDA'):
+            sharding.mesh_for(1, 'cuda')
 
 
 def test_kernel_wrappers_never_fall_back_off_cpu():
@@ -304,7 +317,8 @@ def test_not_ported_options_raise():
     """The options that once raised here (the shrink prior, the 'two'
     and 'bucketed' capacity modes) now run and follow the JAX package:
     the same capacities block for block and the same fitted radius.
-    Multi-device fits still raise."""
+    A 2-rank device_mesh fit runs (CPU ranks over gloo) and follows
+    the one-process fit; more ranks than the machine allows raise."""
     from ch_shrinkwrap_tpu.models import MembraneMesh as JFit
     from ch_shrinkwrap_torch.models import MembraneMesh
     v, f = tico(2, radius=60.0)
@@ -322,7 +336,94 @@ def test_not_ported_options_raise():
         rt = np.linalg.norm(m.vertices, axis=1).mean()
         rj = np.linalg.norm(jm.vertices, axis=1).mean()
         assert abs(rt - rj) < 0.1, kw
+    kw = dict(remesh_frequency=5, kc=1.0, step_size=4.0, device='cpu')
+    m1 = MembraneMesh(v, f, **kw)
+    m1.shrink_wrap(pts, 3.0, max_iter=10, minimum_edge_length=6.0)
+    m = MembraneMesh(v, f, **kw)
+    m.device_mesh = 2
+    m.shrink_wrap(pts, 3.0, max_iter=10, minimum_edge_length=6.0)
+    assert m.device_mesh.world_size == 2 and m.device_mesh.backend == 'gloo'
+    r2 = np.linalg.norm(m.vertices, axis=1).mean()
+    r1 = np.linalg.norm(m1.vertices, axis=1).mean()
+    assert abs(r2 - r1) < 1.0
+    assert m.euler_characteristic == 2 and m.is_manifold
     m = MembraneMesh(v, f, remesh_frequency=5, device='cpu')
-    m.device_mesh = 4
-    with pytest.raises(NotImplementedError):
+    m.device_mesh = (os.cpu_count() or 1) + 1
+    with pytest.raises(ValueError):
         m.shrink_wrap(pts, 3.0, max_iter=10)
+    m = MembraneMesh(v, f, remesh_frequency=5)    # on 'cuda'
+    m.device_mesh = torch.cuda.device_count() + 1
+    with pytest.raises(ValueError):
+        m.shrink_wrap(pts, 3.0, max_iter=10)
+
+
+def test_convert_carries_corr_method_and_device_mesh():
+    """A JAX model's correspondence method ('windowed_pallas' is the
+    port's 'windowed') and its device mesh (as a device count) carry
+    over, and the port's block and fit take the JAX name."""
+    import jax
+    from ch_shrinkwrap_tpu.models import MembraneMesh as JFit
+    from ch_shrinkwrap_tpu.parallel.sharding import make_device_mesh
+    from ch_shrinkwrap_torch.convert import membrane_mesh_from
+    from ch_shrinkwrap_torch.models import MembraneMesh
+    v, f = tico(2, radius=60.0)
+    jm = JFit(v, f)
+    assert membrane_mesh_from(jm, device='cpu').corr_method == 'auto'
+    assert membrane_mesh_from(jm, device='cpu').device_mesh is None
+    for method, want in (('windowed_pallas', 'windowed'), ('grid', 'grid'),
+                         ('blocked', 'blocked'), ('brute', 'brute')):
+        jm.corr_method = method
+        assert membrane_mesh_from(jm, device='cpu').corr_method == want
+    jm.device_mesh = 2
+    assert membrane_mesh_from(jm, device='cpu').device_mesh == 2
+    if len(jax.devices()) >= 2:
+        jm.device_mesh = make_device_mesh(2)
+        assert membrane_mesh_from(jm, device='cpu').device_mesh == 2
+    pts = sphere_points(500)
+    fits = []
+    for method in ('windowed', 'windowed_pallas'):
+        m = MembraneMesh(v, f, remesh_frequency=5, kc=1.0, step_size=4.0,
+                         device='cpu')
+        m.corr_method = method
+        m.shrink_wrap(pts, 3.0, max_iter=5)
+        assert m._last_corr_method == 'windowed'
+        fits.append(m.vertices)
+    np.testing.assert_array_equal(fits[0], fits[1])
+
+
+def test_setup_packages_the_port():
+    """setup.py names the port's packages, and its package data matches
+    every CUDA source and the topology engine; the JAX package's
+    entries stay."""
+    import fnmatch
+    import runpy
+    import setuptools
+    seen = {}
+
+    def fake_setup(**kw):
+        seen.update(kw)
+
+    orig = setuptools.setup
+    setuptools.setup = fake_setup
+    cwd = os.getcwd()
+    try:
+        os.chdir(REPO)
+        runpy.run_path(os.path.join(REPO, 'setup.py'))
+    finally:
+        setuptools.setup = orig
+        os.chdir(cwd)
+    pkgs = set(seen['packages'])
+    for root, _, names in os.walk(os.path.join(REPO, 'ch_shrinkwrap_torch')):
+        if '__init__.py' in names:
+            rel = os.path.relpath(root, REPO).replace(os.sep, '.')
+            assert rel in pkgs, rel
+    assert {'ch_shrinkwrap_tpu', 'ch_shrinkwrap_tpu.native'} <= pkgs
+    data = seen['package_data']
+    assert data['ch_shrinkwrap_tpu.native'] == ['topology.cpp']
+    csrc = os.path.join(REPO, 'ch_shrinkwrap_torch', 'csrc')
+    cu = [n for n in os.listdir(csrc) if n.endswith('.cu')]
+    assert len(cu) >= 3
+    for n in cu:
+        assert any(fnmatch.fnmatch(f'csrc/{n}', pat)
+                   for pat in data['ch_shrinkwrap_torch']), n
+    assert 'topology.cpp' in data['ch_shrinkwrap_torch.native']

@@ -150,9 +150,15 @@ def test_cg_block_want_curv_K(brute_case):
 
 
 def test_spmd_mesh_still_raises(brute_case):
+    """spmd_mesh is ported: what is not a port DeviceMesh, or a mesh
+    outside its process group, still raises."""
+    from ch_shrinkwrap_torch.parallel.sharding import DeviceMesh
     _, st = brute_case
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError):
         tsw.cg_block(*port_args(st, 2.0), num_iters=1, spmd_mesh=object())
+    mesh = DeviceMesh(2, (torch.device('cpu'),) * 2, 'gloo')
+    with pytest.raises(ValueError, match='process group'):
+        tsw.cg_block(*port_args(st, 2.0), num_iters=1, spmd_mesh=mesh)
 
 
 # ---------------------------------------------------------------------

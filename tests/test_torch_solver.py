@@ -268,8 +268,8 @@ def test_cg_block_orthogonality_stop_freezes():
 
 def test_block_call_and_unported_options():
     """block_call is cg_block; the options that once raised here
-    (use_shrink, want_curv_K) now run and follow the JAX block, and
-    spmd_mesh still raises."""
+    (use_shrink, want_curv_K) now run and follow the JAX block, and an
+    spmd_mesh that is not a port DeviceMesh raises."""
     pts, sig = sphere_cloud(n=500)
     a, st = make_state(pts, sig, sub=2)
     f1, d1 = tsw.block_call(*port_args(st, 2.0), 0.0, num_iters=2,
@@ -296,5 +296,6 @@ def test_block_call_and_unported_options():
             Kj = np.asarray(dj.K)[vm]
             np.testing.assert_allclose(dt.K.numpy()[vm], Kj, rtol=1e-3,
                                        atol=1e-3 * np.abs(Kj).max())
-    with pytest.raises(NotImplementedError):
+    # spmd_mesh is ported; a mesh that is not the port's DeviceMesh raises
+    with pytest.raises(TypeError):
         tsw.cg_block(*port_args(st, 2.0), num_iters=1, spmd_mesh=object())
