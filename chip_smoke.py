@@ -49,11 +49,16 @@ step after every block.  Phase corr holds the hash-grid and blocked
 searches to the exact one on the JAX suite's fixture (ids agree > 0.98,
 distances within a cell), reads their agreement at the fit's scale,
 requires the card's ids to equal the CPU's, and runs the 20-iteration
-fit with each.
+fit with each.  Phase grids runs four entries of the sweep grids
+(GRID_ENTRIES: the collapse veto with punching on two tori, a neck cut
+on two capsules directly and through the recipe route, the
+tetrahedron) at once, one spawned worker each: every entry must write
+a metrics row of a manifold surface with the expected topology and an
+sdf_rms within its stated bound of the JAX package's.
 
 Phases run in order (env, build, kernels, cg_block, fit, shard, corr,
-fit99, fit.punch, image, sweep), each under a watchdog deadline: a phase that
-overruns
+fit99, fit.punch, image, sweep, grids), each under a watchdog deadline:
+a phase that overruns
 prints its name and elapsed time and the process exits non-zero.  Any
 failed check exits non-zero.  The second-to-last line is the kernel
 table as JSON; the last line is {"ok": true, "device": {...}}.  Needs
@@ -76,10 +81,10 @@ import numpy as np
 
 # per-phase deadlines in seconds, each about twice the phase's slowest
 # run on an H100 or more; they add up to 1150, so the whole run ends
-# inside 1200 s (the expected total is about 8 minutes)
+# inside 1200 s (the expected total is about 6 minutes)
 DEADLINES = {'env': 15, 'build': 40, 'kernels': 100, 'cg_block': 20,
-             'fit': 110, 'shard': 110, 'corr': 390, 'fit99': 45,
-             'punch': 40, 'image': 100, 'sweep': 180}
+             'fit': 110, 'shard': 110, 'corr': 250, 'fit99': 45,
+             'punch': 40, 'image': 100, 'sweep': 180, 'grids': 140}
 
 # H100 SXM peaks (NVIDIA data sheet) for the bound column
 HBM_BYTES_PER_S = 3.35e12
@@ -1037,6 +1042,105 @@ def check_sweep(sw, euler=0):
           'finished entry')
 
 
+# Phase grids: four sweep entries (configs/) that are correct in the
+# JAX package's record and in every card run of scripts/torch_grids.py
+# and of the phase's repeats (PERF.md section 6): the collapse veto
+# with punching on two tori; a neck cut on two capsules (the separator
+# rows of test_necks_separator.yaml and the one row of
+# test_necks_separator_recipe.yaml flip between card runs, in the JAX
+# package too: ROADMAP Queue C); the same row through the recipe route
+# (``via_recipe``); the tetrahedron.  ``sdf_ref`` is the JAX package's
+# sdf_rms on the entry on the CPU (eval_out_torch/jax_cpu/) and
+# ``sdf_tol`` the bound on |sdf_rms - sdf_ref|.
+GRID_ENTRIES = (
+    dict(config='test_example_veto.yaml', entry='20f3f5f86d4b',
+         sdf_ref=28.531, sdf_tol=0.32),
+    dict(config='test_necks_separator.yaml', entry='7264048d1733',
+         sdf_ref=10.521, sdf_tol=0.90),
+    dict(config='test_necks_separator.yaml', entry='7264048d1733',
+         via_recipe=True, sdf_ref=10.521, sdf_tol=0.90),
+    dict(config='test_tetra.yaml', entry='15e069aae9d3',
+         sdf_ref=14.793, sdf_tol=0.19),
+)
+
+
+def grid_entry(spec):
+    """(sweep dict, entry hash) of a GRID_ENTRIES item; with
+    ``via_recipe`` the same entry through the recipe route."""
+    import yaml
+    from ch_shrinkwrap_torch.eval import harness
+    with open(os.path.join(HERE, 'configs', spec['config'])) as fh:
+        test_d = yaml.safe_load(fh)
+    sw, _ = harness.testing_parameters(test_d)
+    hits = [p for p in sw if harness._param_hash(
+        {'kind': 'shrinkwrap', **p}) == spec['entry']]
+    check(len(hits) == 1,
+          f"grids: {spec['config']} has no entry {spec['entry']}")
+    if not spec.get('via_recipe'):
+        return test_d, spec['entry']
+    test_d['shrinkwrapping']['via_recipe'] = [True]
+    return test_d, harness._param_hash(
+        {'kind': 'shrinkwrap', **dict(hits[0], via_recipe=True)})
+
+
+def phase_grids(entries=GRID_ENTRIES, device='cuda', timeout=110.0):
+    """The chosen sweep entries through the harness, all at once, one
+    spawned worker an entry (``evaluate(n_workers=1, entry_timeout=...,
+    only=...)``), each counting the kernels' launches inside its
+    worker.  Returns per entry its status, worker seconds, launches and
+    metrics row (None when the entry wrote none)."""
+    import tempfile
+    from ch_shrinkwrap_torch.eval.harness import evaluate
+    specs = [(spec, *grid_entry(spec)) for spec in entries]
+    logs = [{} for _ in specs]
+    rows = [None] * len(specs)
+    errors = []
+    with tempfile.TemporaryDirectory() as out:
+        def one(i):
+            spec, test_d, h = specs[i]
+            try:
+                got = evaluate(test_d, out_dir=os.path.join(out, str(i)),
+                               seed=0, n_workers=1, entry_timeout=timeout,
+                               device=device, entry_log=logs[i], only={h})
+                rows[i] = got[0] if got else None
+            except Exception as e:
+                errors.append(f"{spec['config']}: {e!r}")
+
+        pool = [threading.Thread(target=one, args=(i,))
+                for i in range(len(specs))]
+        for t in pool:
+            t.start()
+        for t in pool:
+            t.join()
+    check(not errors, f'grids: {errors}')
+    out = []
+    for (spec, _, h), log, row in zip(specs, logs, rows):
+        info = log.get(h, {})
+        out.append(dict(config=spec['config'], entry=h,
+                        via_recipe=bool(spec.get('via_recipe')),
+                        status=info.get('status', 'not run'),
+                        wall_s=info.get('wall_s'),
+                        launches=info.get('launches'), row=row,
+                        sdf_ref=spec['sdf_ref'], sdf_tol=spec['sdf_tol']))
+    return out
+
+
+def check_grids(results):
+    for r in results:
+        tag = f"grids {r['config']} {r['entry']}"
+        row = r['row']
+        check(row is not None, f"{tag}: no metrics row ({r['status']})")
+        check(r['launches'] is not None, f'{tag}: no launch counts')
+        check(row['manifold'], f'{tag}: mesh not manifold')
+        check(row.get('topology_correct') is True,
+              f"{tag}: euler {row['euler']}, {row['components']} "
+              f"components, expected {row.get('expected_euler')}, "
+              f"{row.get('expected_components')}")
+        d = abs(row['sdf_rms'] - r['sdf_ref'])
+        check(d <= r['sdf_tol'], f"{tag}: |sdf_rms - {r['sdf_ref']}| = "
+              f"{d} > {r['sdf_tol']}")
+
+
 def shard_devices():
     """Two ranks: one a card where the machine has two (NCCL), else
     both on cuda:0 (gloo)."""
@@ -1426,6 +1530,22 @@ def main():
                            'manifold', 'topology_correct', 'mse_rms',
                            'sdf_hausdorff', 'berger_hausdorff')})
         check_sweep(sw)
+    with Watchdog('grids', DEADLINES['grids']):
+        t0 = time.time()
+        grids = phase_grids()
+        for r in grids:
+            row = r['row'] or {}
+            name = r['config'][:-5] + ('.recipe' if r['via_recipe'] else '')
+            phase_line(f'grids.{name}', r['wall_s'] or 0.0,
+                       entry=r['entry'], status=r['status'],
+                       launches=r['launches'], sdf_ref=r['sdf_ref'],
+                       sdf_tol=r['sdf_tol'], **{
+                           k: row.get(k) for k in (
+                               'sdf_rms', 'duration', 'ntriangles',
+                               'euler', 'components', 'manifold',
+                               'topology_correct')})
+        phase_line('grids', time.time() - t0)
+        check_grids(grids)
 
     print(f'total {time.time() - t_all:.1f}s', flush=True)
     table = []
