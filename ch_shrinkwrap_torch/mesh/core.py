@@ -60,12 +60,10 @@ class HalfedgeTables:
         self._length = None
 
         V = positions.shape[0]
-        nat = None
         if nhe >= 8192:  # small meshes: numpy is fine, skip the FFI hop
             from ..native import halfedge_twins
-            nat = halfedge_twins(faces, V)
-        if nat is not None:
-            self.twin, self.nonmanifold_edges, self.vertex_halfedge = nat
+            self.twin, self.nonmanifold_edges, self.vertex_halfedge = \
+                halfedge_twins(faces, V)
         else:
             key = self.src.astype(np.int64) * V + self.vertex
             tkey = self.vertex.astype(np.int64) * V + self.src
@@ -276,8 +274,8 @@ class TriangleMesh:
         every remesh boundary (edge-length schedule logging) and the
         old form built the full halfedge tables for it (~0.2 s per
         boundary at 300k faces).  When the tables aren't already built,
-        a native single-pass (or a direct numpy face-edge mean) gives
-        the identical value: the 3F face edges ARE the halfedges."""
+        a native single pass gives the identical value: the 3F face
+        edges ARE the halfedges."""
         if not self._faces.size:
             return 0.0
         key = (self._topo_rev, self._geom_rev)
@@ -289,10 +287,6 @@ class TriangleMesh:
         else:
             from .. import native
             val = native.mean_edge(self._vertices, self._faces)
-            if val is None:
-                tri = self._vertices[self._faces]
-                val = float(np.linalg.norm(
-                    tri[:, [1, 2, 0]] - tri, axis=-1).mean())
         self._mean_edge_cache = (key, val)
         return val
 
@@ -342,10 +336,8 @@ class TriangleMesh:
         V = self._vertices.shape[0]
         if len(he.src) >= 4096:
             from .. import native
-            r = native.has_nonmanifold_vertices(
+            return native.has_nonmanifold_vertices(
                 he.src, he.vertex, he.twin, he.next, V)
-            if r is not None:
-                return r
         # count distinct one-ring walk components per vertex via union-find
         # over outgoing halfedges: h ~ next(twin(h)) shares the same fan.
         parent = np.arange(len(he.src), dtype=np.int64)
@@ -371,12 +363,9 @@ class TriangleMesh:
         """(labels_per_vertex, n_components) over the edge graph."""
         if self._vertex_components_cache is None:
             V = self._vertices.shape[0]
-            nat = None
             if self._faces.shape[0] >= 4096:
                 from .. import native
-                nat = native.vertex_components(self._faces, V)
-            if nat is not None:
-                labels, n = nat
+                labels, n = native.vertex_components(self._faces, V)
             else:
                 from scipy.sparse import coo_matrix
                 from scipy.sparse.csgraph import connected_components
@@ -481,15 +470,11 @@ class TriangleMesh:
         new_v = self._vertices[vperm]
         new_f = inv[self._faces].astype(np.int32)
         from .. import native
-        codes = native.face_hilbert_codes(new_v, new_f)
-        if codes is not None:
-            # fused native centroid+code pass (bit-exact twin of the
-            # numpy chain below; ~110 -> ~8 ms at 164k, a per-remesh-
-            # boundary cost in the fit loop)
-            fp = np.argsort(codes, kind='stable')
-        else:
-            fc = new_v[new_f].mean(1)
-            fp = hilbert_order(fc)
+        # fused native centroid+code pass (bit-exact twin of
+        # hilbert_order(new_v[new_f].mean(1)); ~110 -> ~8 ms at 164k, a
+        # per-remesh-boundary cost in the fit loop)
+        fp = np.argsort(native.face_hilbert_codes(new_v, new_f),
+                        kind='stable')
         new_f = np.ascontiguousarray(new_f[fp])
         extra = {k: v[vperm] for k, v in self.extra_vertex_data.items()}
         self.set_topology(new_v, new_f)
@@ -724,9 +709,7 @@ class TriangleMesh:
         data = np.asarray(data)
         if data.ndim == 1 and len(data) >= 4096:
             from .. import native
-            out = native.smooth_vertex_data(data, nbrs, n_iter=n_iter)
-            if out is not None:
-                return out
+            return native.smooth_vertex_data(data, nbrs, n_iter=n_iter)
         mask = nbrs >= 0
         counts = mask.sum(1) + 1
         out = np.asarray(data, dtype=np.float64).copy()

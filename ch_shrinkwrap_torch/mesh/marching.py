@@ -202,8 +202,7 @@ def wrap_start(points, offset=10.0, neighbourhood=50, grid_n=48,
     The field itself runs on the native grid-bucketed engine
     (``native.knn_field``: counting-sorted cells + chessboard distance
     transform for O(1) interior rejection + expanding-ring exact
-    search) when available — 25x faster than the kd-tree on this
-    workload — with the scipy kd-tree as fallback.
+    search), 25x faster than a scipy kd-tree on this workload.
 
     ``max_tree_points`` optionally subsamples the cloud with
     ``neighbourhood`` thinned proportionally (k-th NN radius of a
@@ -236,18 +235,8 @@ def wrap_start(points, offset=10.0, neighbourhood=50, grid_n=48,
     # (1-Lipschitz field, body-diagonal tet edges); 1.8 adds margin
     bound = offset + 1.8 * step
 
-    tree = None
-
     def f(p):
         d = native.knn_field(field_pts, p, k_eff, bound)
-        if d is None:
-            nonlocal tree
-            from scipy.spatial import cKDTree
-            if tree is None:
-                tree = cKDTree(field_pts)
-            dd, _ = tree.query(p, k=[k_eff], workers=-1,
-                               distance_upper_bound=bound)
-            d = dd[:, -1]
         return np.where(d <= bound, d, bound) - offset
 
     v, fc = surface_from_function(f, (lo[0], lo[1], lo[2],

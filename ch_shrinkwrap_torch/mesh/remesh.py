@@ -428,9 +428,12 @@ def remesh(mesh, n=5, target_edge_length=-1.0, l=0.5, n_relax=10,
     Parameters mirror the reference call signature
     (``TriangleMesh.remesh(n, target_edge_length, l, n_relax)``,
     _membrane_mesh.pyx:249): ``n`` outer passes, ``l`` the relax step.
-    Dispatches to the C++ engine (``native.remesh``, sequential guarded
-    greedy passes) when available; the vectorized numpy batch passes
-    below are the fallback and the cross-validation reference.
+    ``use_native`` runs the C++ engine (``native.remesh``, sequential
+    guarded greedy passes), which raises when it cannot be built.
+    ``use_native=False`` runs the vectorized numpy batch passes below:
+    another algorithm (independent sets of candidates a batch), so
+    another mesh; the tests' cross-validation reference, never a
+    fallback.
     """
     v, f = mesh.vertices, mesh.faces
     if target_edge_length <= 0:
@@ -449,22 +452,21 @@ def remesh(mesh, n=5, target_edge_length=-1.0, l=0.5, n_relax=10,
                             veto_cos=collapse_veto_cos,
                             veto_min_len=(collapse_veto_min_frac
                                           * float(target_edge_length)))
-        if out is not None:
-            if _ft:
-                _t1 = _ft()
-            mesh.set_topology(out[0], out[1])
-            if _ft:
-                _t2 = _ft()
-            # collapse can shrink split-off fragments below a closed
-            # surface's 4-face minimum (degenerate pillows)
-            mesh.remove_degenerate_components()
-            if _ft:
-                import logging as _lg
-                _lg.getLogger(__name__).info(
-                    'remesh fine: native %.2fs set_topology %.2fs '
-                    'degen %.2fs (V %d->%d)', _t1 - _t0, _t2 - _t1,
-                    _ft() - _t2, v.shape[0], out[0].shape[0])
-            return mesh
+        if _ft:
+            _t1 = _ft()
+        mesh.set_topology(out[0], out[1])
+        if _ft:
+            _t2 = _ft()
+        # collapse can shrink split-off fragments below a closed
+        # surface's 4-face minimum (degenerate pillows)
+        mesh.remove_degenerate_components()
+        if _ft:
+            import logging as _lg
+            _lg.getLogger(__name__).info(
+                'remesh fine: native %.2fs set_topology %.2fs '
+                'degen %.2fs (V %d->%d)', _t1 - _t0, _t2 - _t1,
+                _ft() - _t2, v.shape[0], out[0].shape[0])
+        return mesh
 
     high = 4.0 / 3.0 * target_edge_length
     low = 4.0 / 5.0 * target_edge_length

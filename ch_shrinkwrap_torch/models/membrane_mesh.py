@@ -193,10 +193,9 @@ class MembraneMesh(TriangleMesh):
             if key == 'K' and self.use_native_neck_k:
                 # K-only fast path: the native host kernel
                 from .. import native
-                K_nat = native.gaussian_k(self.vertices, self.faces)
-                if K_nat is not None:
-                    self._curv_state = {'_native_K': K_nat}
-            if self._curv_state is None:
+                self._curv_state = {'_native_K': native.gaussian_k(
+                    self.vertices, self.faces)}
+            else:
                 self._populate_curvature_grad()
         st = self._curv_state
         if key not in st:
@@ -750,11 +749,10 @@ class MembraneMesh(TriangleMesh):
             ni_static = min(ni_static, self.delaunay_remesh_frequency)
 
         # neck removal reads K at every remesh boundary: from the native
-        # host kernel, or else from the CG block on the device
-        from .. import native as _native
+        # host kernel, or (use_native_neck_k False) from the CG block on
+        # the device
         want_K = bool(r and self.neck_first_iter > 0
-                      and not (self.use_native_neck_k
-                               and _native.get_lib() is not None))
+                      and not self.use_native_neck_k)
 
         if method in ('windowed', 'blocked'):
             order = fit_point_order(points)

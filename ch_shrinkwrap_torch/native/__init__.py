@@ -1,25 +1,28 @@
 """ctypes binding for the native host topology engine.
 
-Lazily compiles ``topology.cpp`` with g++ on first import if the shared
-library is missing (no pip/pybind11 dependency); every caller has a
-pure-numpy fallback, so absence of a toolchain only costs speed.
+Compiles ``topology.cpp`` with g++ on first use when the shared library
+is missing or was built from another source (no pip/pybind11
+dependency).  The engine is required: without a working g++,
+``get_lib`` raises with the compiler's error.  The numpy remesh passes
+(``mesh.remesh.remesh(use_native=False)``) are a different algorithm
+(batched independent sets, not sequential greedy passes) and give a
+different mesh, so nothing falls back to them silently.
 """
 
 from __future__ import annotations
 
 import ctypes
-import logging
 import os
 import subprocess
 
 import numpy as np
 
-logger = logging.getLogger(__name__)
-
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_HERE, 'topology.cpp')
 _LIB = os.path.join(_HERE, 'libtopology.so')
 _STAMP = _LIB + '.srchash'
+# lines of g++'s stderr kept in the error of a failed build
+_ERR_LINES = 20
 
 
 def _src_hash():
@@ -32,23 +35,32 @@ _lib = None
 
 
 def _build():
+    """Compile ``_SRC`` into ``_LIB``; None on success, else the tail
+    of each attempt's compiler error."""
     # compile under a private name and os.replace into place, so
     # processes building at the same time (test workers) never load a
     # half-written library
     tmp = '%s.tmp%d' % (_LIB, os.getpid())
+    errors = []
     for flags in (['-O3', '-march=native'], ['-O3']):
+        cmd = ['g++', *flags, '-shared', '-fPIC', '-o', tmp, _SRC]
         try:
-            subprocess.run(['g++', *flags, '-shared', '-fPIC', '-o',
-                            tmp, _SRC], check=True,
-                           capture_output=True, timeout=120)
-            os.replace(tmp, _LIB)
-            with open(tmp, 'w') as fh:
-                fh.write(_src_hash())
-            os.replace(tmp, _STAMP)
-            return True
+            r = subprocess.run(cmd, capture_output=True, text=True,
+                               timeout=120)
         except (OSError, subprocess.SubprocessError) as e:
-            logger.debug('native build attempt failed: %s', e)
-    return False
+            errors.append('%s: %s' % (' '.join(cmd), e))
+            continue
+        if r.returncode != 0:
+            tail = r.stderr.strip().splitlines()[-_ERR_LINES:]
+            errors.append('%s: exit %d\n%s' % (' '.join(cmd), r.returncode,
+                                                '\n'.join(tail)))
+            continue
+        os.replace(tmp, _LIB)
+        with open(tmp, 'w') as fh:
+            fh.write(_src_hash())
+        os.replace(tmp, _STAMP)
+        return None
+    return '\n'.join(errors)
 
 
 def _lib_current():
@@ -66,19 +78,24 @@ def _lib_current():
 
 
 def get_lib():
-    """The loaded shared library, or None if unavailable."""
+    """The loaded shared library, compiled first when missing or stale.
+
+    Raises RuntimeError, with the library's path and the compiler's or
+    the loader's error, when it cannot be built or loaded; a failure is
+    not cached, so the next call tries again."""
     global _lib
     if _lib is not None:
-        return _lib if _lib is not False else None
+        return _lib
     if not _lib_current():
-        if not _build():
-            _lib = False
-            return None
+        err = _build()
+        if err is not None:
+            raise RuntimeError('native host engine: g++ could not build '
+                               '%s from %s:\n%s' % (_LIB, _SRC, err))
     try:
         lib = ctypes.CDLL(_LIB)
-    except OSError:
-        _lib = False
-        return None
+    except OSError as e:
+        raise RuntimeError('native host engine: cannot load %s: %s'
+                           % (_LIB, e)) from e
 
     i32p = ctypes.POINTER(ctypes.c_int32)
     f32p = ctypes.POINTER(ctypes.c_float)
@@ -93,10 +110,6 @@ def get_lib():
         i32p, i32p, i32p, ctypes.c_int]
     lib.build_tables_native.restype = None
     u8p = ctypes.POINTER(ctypes.c_uint8)
-    lib.best_mass_bases.argtypes = [
-        i32p, u8p, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int32, i32p]
-    lib.best_mass_bases.restype = None
     lib.halfedge_twins_native.argtypes = [
         i32p, ctypes.c_int, ctypes.c_int, i32p, u8p, i32p]
     lib.halfedge_twins_native.restype = None
@@ -123,12 +136,6 @@ def get_lib():
         i32p, u8p, ctypes.c_int64, ctypes.c_int32, ctypes.c_int,
         i32p, i32p, i32p, ctypes.c_int64, i64p]
     lib.incidence_native.restype = None
-    lib.ring_schedule_native.argtypes = [
-        i32p, u8p, ctypes.c_int64, ctypes.c_int32, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        i32p, i32p, i32p, i32p, i32p, i32p,
-        ctypes.c_int64, ctypes.c_int64, i64p, i64p]
-    lib.ring_schedule_native.restype = None
     lib.hilbert_codes_native.argtypes = [
         ctypes.POINTER(ctypes.c_uint32), ctypes.c_int64,
         ctypes.c_int, ctypes.POINTER(ctypes.c_uint64)]
@@ -143,19 +150,6 @@ def get_lib():
     lib.gaussian_k_native.restype = None
     lib.mean_edge_native.argtypes = [f32p, i32p, ctypes.c_int]
     lib.mean_edge_native.restype = ctypes.c_double
-    lib.kmaj_stream_clip_native.argtypes = [
-        i32p, ctypes.c_int64, ctypes.c_int32, ctypes.c_int32,
-        ctypes.c_int64, i32p, u8p]
-    lib.kmaj_stream_clip_native.restype = None
-    lib.flat_stream_clip_native.argtypes = [i32p, ctypes.c_int64,
-                                            i32p, u8p]
-    lib.flat_stream_clip_native.restype = None
-    lib.repeat3_mask_native.argtypes = [u8p, ctypes.c_int64, u8p]
-    lib.repeat3_mask_native.restype = None
-    lib.strided_col_native.argtypes = [i32p, ctypes.c_int64,
-                                       ctypes.c_int32, ctypes.c_int32,
-                                       i32p]
-    lib.strided_col_native.restype = None
     lib.smooth_vertex_data_native.argtypes = [
         f32p, i32p, ctypes.c_int64, ctypes.c_int32, ctypes.c_int32,
         f32p]
@@ -177,14 +171,12 @@ def _i32p(a):
 
 def remesh(vertices, faces, target, n_passes=5, l=0.5, n_relax=0,
            max_valence=20, veto_cos=None, veto_min_len=None):
-    """Native isotropic remesh; returns (V, F) or None if unavailable.
+    """Native isotropic remesh; returns (V, F).
 
     ``veto_cos`` (opt-in): skip collapsing edges whose endpoint-normal
     dot falls below it while the edge is longer than ``veto_min_len``
     — the thin-tube pinch protection (remesh_collapse_veto)."""
     lib = get_lib()
-    if lib is None:
-        return None
     # with the collapse result-guard the passes equilibrate at the
     # nominal target itself (the pre-guard split/collapse churn used to
     # settle at ~1.45x, hence a historical 0.70 rescale — now removed)
@@ -218,22 +210,21 @@ def remesh(vertices, faces, target, n_passes=5, l=0.5, n_relax=0,
             return (v_out[:nv_out[0]].copy(), f_out[:nf_out[0]].copy())
         v_cap = int(-nv_out[0] * 1.3) + 1024
         f_cap = int(-nf_out[0] * 1.3) + 2048
-    return None
+    raise RuntimeError('native remesh: output overflowed its capacity '
+                       '(%d vertices, %d faces) three times'
+                       % (v_cap, f_cap))
 
 
 def mean_edge(vertices, faces):
-    """Mean halfedge length (one native pass) or None if unavailable."""
+    """Mean halfedge length (one native pass)."""
     lib = get_lib()
-    if lib is None:
-        return None
     v = np.ascontiguousarray(vertices, dtype=np.float32)
     f = np.ascontiguousarray(faces, dtype=np.int32)
     return float(lib.mean_edge_native(_f32p(v), _i32p(f), len(f)))
 
 
 def build_tables(faces, n_vertices, K=20, out=None, want_face_adj=True):
-    """Native neighbor tables; returns (nbr_v, nbr_f, face_nbrs) or
-    None if unavailable.
+    """Native neighbor tables; returns (nbr_v, nbr_f, face_nbrs).
 
     ``out=(nbr_v, nbr_f, face_nbrs)``: write rows [:n_vertices] /
     [:nf] directly into caller-held (row-capacity >= live count,
@@ -242,8 +233,6 @@ def build_tables(faces, n_vertices, K=20, out=None, want_face_adj=True):
     (Vp, K) memcpy per remesh boundary.  ``want_face_adj=False``
     skips the twin-matching scan and returns face_nbrs=None."""
     lib = get_lib()
-    if lib is None:
-        return None
     f = np.ascontiguousarray(faces, dtype=np.int32)
     nf = len(f)
     if out is not None:
@@ -263,10 +252,8 @@ def build_tables(faces, n_vertices, K=20, out=None, want_face_adj=True):
 
 def halfedge_twins(faces, n_vertices):
     """Native twin/dup/vertex_halfedge arrays for HalfedgeTables;
-    returns (twin, dup, vertex_halfedge) or None if unavailable."""
+    returns (twin, dup, vertex_halfedge)."""
     lib = get_lib()
-    if lib is None:
-        return None
     f = np.ascontiguousarray(faces, dtype=np.int32)
     nf = len(f)
     twin = np.empty(3 * nf, np.int32)
@@ -280,13 +267,11 @@ def halfedge_twins(faces, n_vertices):
 
 def face_hygiene(faces, n_vertices):
     """Per-face bad flags (degenerate | duplicate triple | on an
-    over-shared edge) for repair(); returns bool (F,) or None if the
-    native lib is unavailable or n_vertices >= 2^21."""
+    over-shared edge) for repair(); returns bool (F,), or None when
+    n_vertices >= 2^21 (the packed key's range)."""
     if n_vertices >= (1 << 21):
         return None
     lib = get_lib()
-    if lib is None:
-        return None
     f = np.ascontiguousarray(faces, dtype=np.int32)
     bad = np.empty(len(f), np.uint8)
     lib.face_hygiene_native(
@@ -297,10 +282,8 @@ def face_hygiene(faces, n_vertices):
 
 def vertex_components(faces, n_vertices):
     """(labels, n_components) over the face-edge graph via native
-    union-find (scipy labeling convention), or None if unavailable."""
+    union-find (scipy labeling convention)."""
     lib = get_lib()
-    if lib is None:
-        return None
     f = np.ascontiguousarray(faces, dtype=np.int32)
     labels = np.empty(n_vertices, np.int32)
     n = lib.vertex_components_native(_i32p(f), len(f), n_vertices,
@@ -308,33 +291,12 @@ def vertex_components(faces, n_vertices):
     return labels, int(n)
 
 
-def best_mass_bases(idx, care, chunk, span, n_src):
-    """Native per-chunk best-mass window bases for the ring-gather
-    schedule; returns (nc,) int32 or None if unavailable."""
-    lib = get_lib()
-    if lib is None:
-        return None
-    idx = np.ascontiguousarray(idx, dtype=np.int32)
-    care = np.ascontiguousarray(care, dtype=np.uint8)
-    nc = idx.shape[0] // chunk
-    out = np.empty(nc, np.int32)
-    lib.best_mass_bases(
-        _i32p(idx), care.ctypes.data_as(
-            ctypes.POINTER(ctypes.c_uint8)),
-        ctypes.c_int64(idx.shape[0]), chunk, span,
-        ctypes.c_int32(int(n_src)), _i32p(out))
-    return out
-
-
 def knn_field(points, queries, k, bound):
     """Exact bounded k-th-NN distance field (the wrap_start density
     field): (Q,) float32 distances, with queries whose k-th neighbor
     lies beyond ``bound`` returned as 2*bound (caller clamps, matching
-    scipy's distance_upper_bound -> inf convention).  None if the
-    native engine is unavailable."""
+    scipy's distance_upper_bound -> inf convention)."""
     lib = get_lib()
-    if lib is None:
-        return None
     p = np.ascontiguousarray(points, dtype=np.float32)
     q = np.ascontiguousarray(queries, dtype=np.float32)
     out = np.empty(len(q), np.float32)
@@ -351,8 +313,8 @@ class KnnField:
     The grid + chessboard-transform build is O(N) and depends only on
     the points; the punch pass queries the SAME localization cloud at
     every boundary, so holding one of these across calls amortizes the
-    build (measured ~half the per-call cost at 1e6 points).  None-safe:
-    ``KnnField.create`` returns None when the native engine is absent.
+    build (measured ~half the per-call cost at 1e6 points).
+    ``KnnField.create`` returns None for an empty point set.
     """
 
     def __init__(self, handle, lib):
@@ -362,8 +324,6 @@ class KnnField:
     @staticmethod
     def create(points):
         lib = get_lib()
-        if lib is None:
-            return None
         p = np.ascontiguousarray(points, dtype=np.float32)
         h = lib.knn_field_build_native(_f32p(p), ctypes.c_int64(len(p)))
         if not h:
@@ -390,10 +350,8 @@ class KnnField:
 def hilbert_codes(X, bits):
     """Hilbert codes for pre-quantized (n, 3) uint32 coordinates;
     bit-exact twin of the numpy Skilling loops in
-    ``ops.correspondence.hilbert_order``.  None if unavailable."""
+    ``ops.ordering.hilbert_order``."""
     lib = get_lib()
-    if lib is None:
-        return None
     Xc = np.ascontiguousarray(X, dtype=np.uint32)
     out = np.empty(len(Xc), np.uint64)
     lib.hilbert_codes_native(
@@ -407,10 +365,8 @@ def face_hilbert_codes(vertices, faces, bits=10):
     """Fused face-centroid Hilbert codes (centroid + bbox + quantize +
     code in one native pass) — the spatial_sort face-ordering key
     without the numpy ``v[f].mean(1)`` gather chain.  Bit-exact twin
-    of ``hilbert_codes_for(v[f].mean(1))``.  None if unavailable."""
+    of ``hilbert_codes_for(v[f].mean(1))``."""
     lib = get_lib()
-    if lib is None:
-        return None
     v = np.ascontiguousarray(vertices, np.float32)
     f = np.ascontiguousarray(faces, np.int32)
     out = np.empty(len(f), np.uint64)
@@ -420,64 +376,15 @@ def face_hilbert_codes(vertices, faces, bits=10):
     return out
 
 
-def ring_schedule(idx, care, n_src, span, ring_segs, patch_segs,
-                  patch_chunk_segs, cps, patch_cap, uncov_cap):
-    """Full ring-gather schedule in native code (the fixed-layout
-    production path of ``ops.pallas_gather.ring_gather_schedule``).
-    Returns (bases, pbases, dmas, idx_patched (nc,128), targets,
-    uncov, n_patch_rows, n_uncov) or None if the library is
-    unavailable.  Semantics match the numpy formulation exactly
-    (tested); the caller enforces the patch/uncov budgets from the
-    returned counts."""
+def incidence(faces, f_mask, n_vertices, K=8):
+    """Native vertex->incident-corner-row table
+    (ops.meshdata.incidence_table); returns (inc (V, K) i32 -1-padded,
+    ov_rows, ov_verts), the incident rows in ascending row order."""
     lib = get_lib()
-    if lib is None:
-        return None
-    idx = np.ascontiguousarray(idx, dtype=np.int32)
-    # contiguous bool arrays reinterpret as uint8 zero-copy (numpy
-    # bool is one byte of 0/1); dtype-converting ascontiguousarray
-    # would copy the full stream per schedule call
-    if care.dtype == np.bool_ and care.flags.c_contiguous:
-        care = care.view(np.uint8)
-    else:
-        care = np.ascontiguousarray(care, dtype=np.uint8)
-    R = idx.shape[0]
-    step_rows = cps * 128
-    n_steps = -(-R // step_rows)
-    Rp = n_steps * step_rows
-    nc = Rp // 128
-    bases = np.zeros(nc, np.int32)
-    pbases = np.zeros(nc, np.int32)
-    dmas = np.zeros(n_steps * 8, np.int32)
-    idx_patched = np.zeros(Rp, np.int32)
-    idx_patched[:R] = idx
-    targets = np.zeros(patch_cap, np.int32)
-    uncov = np.full(uncov_cap, -1, np.int32)
-    n_patch = ctypes.c_int64(0)
-    n_uncov = ctypes.c_int64(0)
-    lib.ring_schedule_native(
-        _i32p(idx), care.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
-        ctypes.c_int64(R), ctypes.c_int32(int(n_src)), int(span),
-        int(ring_segs), int(patch_segs), int(patch_chunk_segs),
-        int(cps), _i32p(bases), _i32p(pbases), _i32p(dmas),
-        _i32p(idx_patched), _i32p(targets), _i32p(uncov),
-        ctypes.c_int64(patch_cap), ctypes.c_int64(uncov_cap),
-        ctypes.byref(n_patch), ctypes.byref(n_uncov))
-    return (bases, pbases, dmas, idx_patched.reshape(nc, 128), targets,
-            uncov, int(n_patch.value), int(n_uncov.value))
-
-
-def incidence(faces, f_mask, n_vertices, K=8, ov_cap=None):
-    """Native vertex->incident-corner-row table (the numpy fallback is
-    ops.meshdata.incidence_table); returns (inc (V, K) i32 -1-padded,
-    ov_rows, ov_verts) with exact numpy-order semantics, or None if the
-    library is unavailable or the overflow exceeds ``ov_cap``."""
-    lib = get_lib()
-    if lib is None:
-        return None
     f = np.ascontiguousarray(faces, dtype=np.int32)
     fm = np.ascontiguousarray(f_mask, dtype=np.uint8)
-    if ov_cap is None:
-        ov_cap = 3 * len(f)
+    # every corner row overflows at most once
+    ov_cap = 3 * len(f)
     inc = np.full((n_vertices, K), -1, np.int32)
     ov_rows = np.empty(ov_cap, np.int32)
     ov_verts = np.empty(ov_cap, np.int32)
@@ -487,15 +394,12 @@ def incidence(faces, f_mask, n_vertices, K=8, ov_cap=None):
         ctypes.c_int64(len(f)), ctypes.c_int32(int(n_vertices)), int(K),
         _i32p(inc), _i32p(ov_rows), _i32p(ov_verts),
         ctypes.c_int64(ov_cap), ctypes.byref(n_ov))
-    if n_ov.value > ov_cap:
-        return None
     return inc, ov_rows[:n_ov.value].copy(), ov_verts[:n_ov.value].copy()
 
 
 def gaussian_k(vertices, faces, nbr_v=None):
     """Native per-vertex Gaussian curvature (the K-only subset of
-    ops.curvature.curvature_grad, method='lsq'); returns (V,) f32 or
-    None if the library is unavailable.
+    ops.curvature.curvature_grad, method='lsq'); returns (V,) f32.
 
     The fit loop uses this for the boundary neck diagnostic
     (remove_necks consumes only K — counterpart of the reference's
@@ -506,16 +410,11 @@ def gaussian_k(vertices, faces, nbr_v=None):
     omitted.
     """
     lib = get_lib()
-    if lib is None:
-        return None
     v = np.ascontiguousarray(vertices, dtype=np.float32)
     f = np.ascontiguousarray(faces, dtype=np.int32)
     nv = len(v)
     if nbr_v is None:
-        tables = build_tables(f, nv)
-        if tables is None:
-            return None
-        nbr_v = tables[0]
+        nbr_v = build_tables(f, nv)[0]
     nb = np.ascontiguousarray(nbr_v, dtype=np.int32)
     K_out = np.empty(nv, np.float32)
     lib.gaussian_k_native(_f32p(v), nv, _i32p(f), len(f),
@@ -523,103 +422,16 @@ def gaussian_k(vertices, faces, nbr_v=None):
     return K_out
 
 
-def _u8p(a):
-    return a.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8))
-
-
-def kmaj_stream_clip(tbl, k_take, block, idx_out=None, care_out=None):
-    """Fused block-interleaved k-major stream of ``tbl[:, :k_take]``
-    with negatives clamped to 0 and care = entry >= 0 — one native
-    pass replacing clip copy + mask alloc + the two transpose copies
-    of ``pallas_gather.blocked_kmajor_stream``.  ``tbl`` must be a
-    C-contiguous (V, k_src) int32 table with V % block == 0.  Returns
-    (idx, care_u8) or None if the library is unavailable."""
-    lib = get_lib()
-    if lib is None:
-        return None
-    if tbl.dtype != np.int32 or not tbl.flags.c_contiguous:
-        return None
-    V, k_src = tbl.shape
-    if V % block or k_take > k_src:
-        return None
-    n = V * k_take
-    if idx_out is None or idx_out.shape != (n,) \
-            or idx_out.dtype != np.int32:
-        idx_out = np.empty(n, np.int32)
-    if care_out is None or care_out.shape != (n,) \
-            or care_out.dtype != np.uint8:
-        care_out = np.empty(n, np.uint8)
-    lib.kmaj_stream_clip_native(_i32p(tbl), V, k_src, int(k_take),
-                                int(block), _i32p(idx_out),
-                                _u8p(care_out))
-    return idx_out, care_out
-
-
-def flat_stream_clip(tbl, idx_out=None, care_out=None):
-    """idx = clip(tbl, 0).ravel(), care = (tbl >= 0).ravel() in one
-    native pass; ``tbl`` C-contiguous int32.  Returns (idx, care_u8)
-    or None."""
-    lib = get_lib()
-    if lib is None:
-        return None
-    if tbl.dtype != np.int32 or not tbl.flags.c_contiguous:
-        return None
-    n = int(tbl.size)
-    if idx_out is None or idx_out.shape != (n,) \
-            or idx_out.dtype != np.int32:
-        idx_out = np.empty(n, np.int32)
-    if care_out is None or care_out.shape != (n,) \
-            or care_out.dtype != np.uint8:
-        care_out = np.empty(n, np.uint8)
-    lib.flat_stream_clip_native(_i32p(tbl.reshape(-1)), n,
-                                _i32p(idx_out), _u8p(care_out))
-    return idx_out, care_out
-
-
-def repeat3_mask(mask, out=None):
-    """np.repeat(mask, 3) as uint8 in one native pass; ``mask`` a
-    C-contiguous bool/uint8 vector.  Returns uint8 array or None."""
-    lib = get_lib()
-    if lib is None:
-        return None
-    if mask.dtype not in (np.bool_, np.uint8) \
-            or not mask.flags.c_contiguous:
-        return None
-    n = int(mask.shape[0])
-    if out is None or out.shape != (3 * n,) or out.dtype != np.uint8:
-        out = np.empty(3 * n, np.uint8)
-    lib.repeat3_mask_native(_u8p(mask.view(np.uint8)), n, _u8p(out))
-    return out
-
-
-def strided_col(tbl, col, out=None):
-    """tbl[:, col] as a fresh contiguous int32 vector (native strided
-    extract); ``tbl`` C-contiguous (n, stride) int32.  Returns the
-    column or None."""
-    lib = get_lib()
-    if lib is None:
-        return None
-    if tbl.dtype != np.int32 or not tbl.flags.c_contiguous:
-        return None
-    n, stride = tbl.shape
-    if out is None or out.shape != (n,) or out.dtype != np.int32:
-        out = np.empty(n, np.int32)
-    lib.strided_col_native(_i32p(tbl), n, stride, int(col), _i32p(out))
-    return out
-
-
 def smooth_vertex_data(data, nbr_v, n_iter=1):
     """One-ring average of per-vertex scalar data (incl. self) —
     bit-exact native twin of TriangleMesh.smooth_per_vertex_data
-    (float64 accumulation in neighbor-slot order).  Returns (V,) f32
-    or None if the library is unavailable."""
+    (float64 accumulation in neighbor-slot order).  Returns (V,) f32."""
     lib = get_lib()
-    if lib is None:
-        return None
     d = np.ascontiguousarray(data, dtype=np.float32)
     nb = np.ascontiguousarray(nbr_v, dtype=np.int32)
     if d.ndim != 1 or nb.ndim != 2 or nb.shape[0] != d.shape[0]:
-        return None
+        raise ValueError('smooth_vertex_data: data %s against a %s '
+                         'neighbour table' % (d.shape, nb.shape))
     out = np.empty(d.shape[0], np.float32)
     lib.smooth_vertex_data_native(_f32p(d), _i32p(nb),
                                   ctypes.c_int64(d.shape[0]),
@@ -631,11 +443,8 @@ def smooth_vertex_data(data, nbr_v, n_iter=1):
 def has_nonmanifold_vertices(he_src, he_vertex, he_twin, he_next, nv):
     """Fan-count nonmanifold-vertex test over packed halfedge tables
     (twin of mesh.core._has_nonmanifold_vertices's union-find, which
-    costs ~2 s of pure-Python find() at 131k verts).  Returns bool or
-    None if the library is unavailable."""
+    costs ~2 s of pure-Python find() at 131k verts).  Returns bool."""
     lib = get_lib()
-    if lib is None:
-        return None
     s = np.ascontiguousarray(he_src, dtype=np.int32)
     v = np.ascontiguousarray(he_vertex, dtype=np.int32)
     t = np.ascontiguousarray(he_twin, dtype=np.int32)

@@ -8,7 +8,7 @@
 // takes (V,F), builds halfedge connectivity internally, performs
 // sequential guarded remeshing (split / collapse / flip / relax — a
 // serial greedy pass has no independent-set sparsity limits, unlike
-// the vectorized numpy fallback), and emits a compacted (V,F) pair
+// the vectorized numpy passes), and emits a compacted (V,F) pair
 // plus the neighbor tables the curvature/solver kernels consume.
 //
 // Plain C ABI for ctypes binding (no pybind11 in this image).

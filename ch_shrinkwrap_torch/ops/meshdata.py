@@ -83,7 +83,9 @@ def neighbor_tables(faces: np.ndarray, n_vertices: int,
                     K: int = NEIGHBORSIZE):
     """(V, K) neighbour-vertex and neighbour-face tables from (F, 3)
     faces: slot k of vertex v holds the head of one outgoing halfedge
-    v->u and the face on that halfedge's left."""
+    v->u and the face on that halfedge's left.  The numpy reference of
+    ``native.build_tables`` (which ``from_mesh`` runs), held to it in
+    the tests."""
     src = faces.ravel()
     dst = faces[:, [1, 2, 0]].ravel()
     fidx = np.repeat(np.arange(faces.shape[0], dtype=np.int64), 3)
@@ -100,7 +102,8 @@ def neighbor_tables(faces: np.ndarray, n_vertices: int,
 
 
 def face_adjacency(faces: np.ndarray) -> np.ndarray:
-    """(F, 3) edge-adjacent face ids (-1 on boundary/non-manifold)."""
+    """(F, 3) edge-adjacent face ids (-1 on boundary/non-manifold); the
+    numpy reference of ``native.build_tables``' face table."""
     F = faces.shape[0]
     if F == 0:
         return np.zeros((0, 3), np.int32)
@@ -154,12 +157,7 @@ def from_mesh(mesh, v_cap: Optional[int] = None,
     nbr_v = np.full((Vp, K), -1, np.int32)
     nbr_f = np.full((Vp, K), -1, np.int32)
     fn = np.full((Fp, 3), -1, np.int32)
-    tables = native.build_tables(f, V, K, out=(nbr_v, nbr_f, fn))
-    if tables is None:
-        nv, nf = neighbor_tables(f, V, K)
-        nbr_v[:V] = nv
-        nbr_f[:V] = nf
-        fn[:F] = face_adjacency(f)
+    native.build_tables(f, V, K, out=(nbr_v, nbr_f, fn))
 
     host = {'faces': faces, 'f_mask': f_mask, 'nbr_v': nbr_v,
             'nbr_f': nbr_f, 'face_nbrs': fn, 'V': V, 'F': F}
@@ -179,23 +177,7 @@ def incidence_table(faces: np.ndarray, f_mask: np.ndarray,
     ov_rows (O,) i32, ov_verts (O,) i32), the overflow lists carrying
     the incident rows of vertices with valence > K."""
     from .. import native
-    nat = native.incidence(faces, f_mask, n_vertices, K=K)
-    if nat is not None:
-        return nat
-    flat = faces.reshape(-1).astype(np.int64)
-    valid = np.repeat(np.asarray(f_mask, bool), 3)
-    rows = np.flatnonzero(valid)
-    src = flat[rows]
-    order = np.argsort(src, kind='stable')
-    ssrc = src[order]
-    starts = np.searchsorted(ssrc, np.arange(n_vertices))
-    rank = np.arange(len(ssrc)) - starts[ssrc]
-    inc = np.full((n_vertices, K), -1, np.int32)
-    ok = rank < K
-    inc[ssrc[ok], rank[ok]] = rows[order[ok]]
-    ov = ~ok
-    return (inc, rows[order[ov]].astype(np.int32),
-            ssrc[ov].astype(np.int32))
+    return native.incidence(faces, f_mask, n_vertices, K=K)
 
 
 class GatherTables(NamedTuple):

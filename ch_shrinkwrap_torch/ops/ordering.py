@@ -92,9 +92,7 @@ def hilbert_codes_for(points, bits=10, lo=None, hi=None):
 
     if len(X) >= 4096:
         from .. import native
-        code = native.hilbert_codes(X, bits)
-        if code is not None:
-            return code
+        return native.hilbert_codes(X, bits)
 
     M = np.uint32(1 << (bits - 1))
     # inverse undo (Skilling, "Programming the Hilbert curve", 2004)

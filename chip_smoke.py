@@ -4,7 +4,9 @@
 
 Builds the port's CUDA kernels (K1 window search, K2 windowed scatter,
 K3 row gather and K3f, the fold's fused gather + masked group sum) with
-nvcc, holds each against its plain PyTorch version at the shapes of the
+nvcc and the native host engine (native/topology.cpp, the remesh and
+surgery of every fit) with g++, failing when either cannot be built or
+loaded; holds each kernel against its plain PyTorch version at the shapes of the
 fit's path, and reads each kernel's device time (torch.profiler kernel
 events) beside its bound, its plain version's and a library call's, on
 the path's own inputs.  It then times the bench configuration's CG
@@ -235,6 +237,27 @@ def phase_build():
     path, log = _build.build()
     _build.lib()
     return path, log
+
+
+def phase_host_engine():
+    """Build (when not yet built) and load the native host engine that
+    every fit's remesh, tables and surgery run on; fails the run when
+    it cannot be built or loaded (there is no fallback to switch to)."""
+    from ch_shrinkwrap_torch import native
+    built = not native._lib_current()
+    t0 = time.time()
+    try:
+        native.get_lib()
+        err = None
+    except RuntimeError as e:
+        err = str(e)
+    build_s = time.time() - t0
+    check(err is None, f'host engine: {err}')
+    gxx = subprocess.run(['g++', '--version'], capture_output=True,
+                         text=True, timeout=30, check=True)
+    return {'engine': 'native', 'built': built,
+            'build_s': round(build_s, 3), 'lib': native._LIB,
+            'gxx': repr(gxx.stdout.strip().splitlines()[0])}
 
 
 def _kernel_mesh(device):
@@ -1396,6 +1419,9 @@ def main():
             if 'registers' in line or 'Compiling entry' in line \
                     or 'spill' in line:
                 print('  ptxas:', line.strip(), flush=True)
+        t0 = time.time()
+        host = phase_host_engine()
+        phase_line('build.host_engine', time.time() - t0, **host)
     with Watchdog('kernels', DEADLINES['kernels']):
         t0 = time.time()
         recs = phase_kernels()

@@ -22,6 +22,9 @@ from ch_shrinkwrap_torch.visgui_modules import shrinkwrap as tgui_sw
 from ch_shrinkwrap_torch.visgui_modules import \
     surface_feature_extraction as tgui_sfe
 
+from torch_parity_native import load_both_engines
+
+load_both_engines()
 torch.set_num_threads(1)
 
 

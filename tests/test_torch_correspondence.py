@@ -27,6 +27,9 @@ from ch_shrinkwrap_torch.utils.math import fma_f32
 
 from chip_smoke import k1_boundary_cases, k1_lattice_case, k1_tie_cases
 
+from torch_parity_native import load_both_engines
+
+load_both_engines()
 torch.set_num_threads(1)
 
 

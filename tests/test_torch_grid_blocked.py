@@ -27,6 +27,9 @@ from ch_shrinkwrap_torch.ops import correspondence as tcorr
 from ch_shrinkwrap_torch.ops.ordering import fit_point_order
 from ch_shrinkwrap_torch.solver import shrinkwrap as tsw
 
+from torch_parity_native import load_both_engines
+
+load_both_engines()
 torch.set_num_threads(1)
 
 

@@ -38,6 +38,9 @@ from ch_shrinkwrap_torch.mesh.marching import initial_surface_from_density
 from ch_shrinkwrap_torch.sim.pointcloud import \
     generate_smlm_pointcloud_from_shape
 
+from torch_parity_native import load_both_engines
+
+load_both_engines()
 torch.set_num_threads(1)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

@@ -18,6 +18,9 @@ from ch_shrinkwrap_tpu.eval import harness as jh
 
 from ch_shrinkwrap_torch.eval import harness as th
 
+from torch_parity_native import load_both_engines
+
+load_both_engines()
 torch.set_num_threads(1)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

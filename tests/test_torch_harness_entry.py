@@ -21,6 +21,9 @@ from ch_shrinkwrap_tpu.eval.harness import run_shrinkwrap_entry as jrun
 
 from ch_shrinkwrap_torch.eval.harness import run_shrinkwrap_entry as trun
 
+from torch_parity_native import load_both_engines
+
+load_both_engines()
 torch.set_num_threads(1)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

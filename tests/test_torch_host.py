@@ -31,6 +31,9 @@ from ch_shrinkwrap_torch.mesh.marching import wrap_start as twrap
 from ch_shrinkwrap_torch.ops import meshdata as tmd
 from ch_shrinkwrap_torch.ops import ordering as tord
 
+from torch_parity_native import load_both_engines
+
+load_both_engines()
 torch.set_num_threads(1)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

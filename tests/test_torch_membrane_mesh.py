@@ -13,6 +13,9 @@ from ch_shrinkwrap_tpu.mesh.primitives import icosphere
 
 from ch_shrinkwrap_torch.models import MembraneMesh as TMesh
 
+from torch_parity_native import load_both_engines
+
+load_both_engines()
 torch.set_num_threads(1)
 
 

@@ -18,6 +18,9 @@ import chip_smoke
 from ch_shrinkwrap_torch import recipes as trec
 from ch_shrinkwrap_torch.models.membrane_mesh import MembraneMesh as TMesh
 
+from torch_parity_native import load_both_engines
+
+load_both_engines()
 torch.set_num_threads(1)
 
 DEVICE_MODULES = {'ShrinkwrapMembrane', 'ImageShrinkwrapMembrane',

@@ -21,6 +21,9 @@ from ch_shrinkwrap_tpu.ops import pallas_scatter as jps
 from ch_shrinkwrap_torch.ops import correspondence as tcorr
 from ch_shrinkwrap_torch.ops import cuda_scatter
 
+from torch_parity_native import load_both_engines
+
+load_both_engines()
 torch.set_num_threads(1)
 
 W = 1024

@@ -34,6 +34,9 @@ from ch_shrinkwrap_torch.solver.tikhonov import TikhonovConjugateGradient \
     as TTik
 from ch_shrinkwrap_torch.utils import checkpoint as tckpt
 
+from torch_parity_native import load_both_engines
+
+load_both_engines()
 torch.set_num_threads(1)
 
 

@@ -24,6 +24,9 @@ from ch_shrinkwrap_torch.convert import state_from_numpy
 from ch_shrinkwrap_torch.ops import meshdata as tmd
 from ch_shrinkwrap_torch.solver import shrinkwrap as tsw
 
+from torch_parity_native import load_both_engines
+
+load_both_engines()
 torch.set_num_threads(1)
 
 

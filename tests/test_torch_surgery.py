@@ -32,6 +32,9 @@ from ch_shrinkwrap_torch.models.holepunch_sdf import \
 import chip_smoke
 from chip_smoke import torus_cloud
 
+from torch_parity_native import load_both_engines
+
+load_both_engines()
 torch.set_num_threads(1)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
