@@ -1,4 +1,6 @@
-// K2: windowed segment-sum of per-point rows onto faces (the A^T scatter).
+// K2: windowed segment-sum of per-point rows onto faces (the A^T scatter),
+// and the ordered segment sum that every other accumulation of the fit
+// runs through.
 //
 // Replaces the JAX package's Pallas TPU kernel `_scatter_kernel`
 // (ops/pallas_scatter.py:44, launched by `_call_scatter` :257) and its four
@@ -21,30 +23,55 @@
 // sub_ids[js], not on fid.  Targets at or beyond num_segments (pad faces
 // of the 128-aligned table) are dropped.
 //
-// Bound on the H100: L2 atomics.  The bytes are few (36 B of inputs a
-// row, 48 B of output a face in AH mode), but a row-per-thread kernel
-// with scalar atomics issues C atomics a row (12e6 an iteration at 1e6
-// points), and the 32 lanes of each atomic instruction hit 32 different
-// face rows.  Two things cut that:
-//  * warp pre-aggregation: the points are Hilbert-sorted, so lanes of a
-//    warp often share a target face.  __match_any_sync groups the lanes
-//    by target, and a shuffle tree (Westphal's peer reduction) sums each
-//    group's row into its lowest lane before any atomic is issued;
-//  * vector atomics: that lane adds the row with one float4 atomicAdd
-//    per 4 columns (sm_90 and CUDA >= 12.1; there is no scalar fallback).
-//    The output table's row stride is C rounded up to 4 (12, 20, 8, or
-//    <= 12 for GIVEN), so every row is 16-byte aligned; the wrapper
-//    returns the first C columns.
-// The accumulation order is not deterministic, so results agree with the
-// plain version to 1e-4 * max|ref|, not bit for bit.  Index arithmetic is
-// 32-bit (the wrapper checks N < 2^31).
+// The order of the sum.  Each face's row is the float32 sum, from 0.0f,
+// of the mode's products for the rows routed to it, taken in ascending
+// row index: the order in which the plain version's index_add_ adds them
+// on the CPU.  So the result is a function of the inputs alone, equal to
+// the plain version bit for bit, and the same on every run (the TPU's
+// grid walks its blocks in order too).  Products and sums are rounded
+// one at a time (__fmul_rn, __fadd_rn), never contracted into an FMA,
+// as the plain version rounds the product before it adds it.  There is
+// no float atomic anywhere.
+//
+// Three stages, each a launch:
+//  (a) windowed_route_kernel writes each row's target face, and
+//      num_segments for a dropped row, so dropped rows sort past the
+//      last face and form no segment;
+//  (b) a stable ordering of the rows by target, and each face's first
+//      row in that order (the wrapper: torch.sort(stable=True) and
+//      torch.searchsorted).  The ordering moves indices only and adds
+//      nothing, so taking it from the library leaves every sum in this
+//      file;
+//  (c) windowed_reduce_kernel: one thread a face walks its segment of
+//      the ordering in order, forms the mode's products from w and res
+//      (or reads vals) and writes the face's padded row once, zeros
+//      where the face has no rows.  That write replaces the separate
+//      zero fill of the table an atomic kernel needs.
+// The output table's row stride is C rounded up to 4 (12, 20, 8, or
+// <= 12 for GIVEN), so every row is written with 16-byte stores; the
+// wrapper returns the first C columns.
+//
+// Bound on the H100: bytes, about 0.017 ms at 1e6 points (36 B of
+// inputs a row, 48 B of output a face in AH mode); the ordering adds a
+// sort of N keys and the kernels re-read the index stream.  A segment is
+// a serial chain of adds, so a long one (a face that collects the rows of
+// a whole block) is a long chain; the loop loads the next four rows
+// before it adds them, to keep the loads in flight.
+//
+// segment_sum_kernel is stage (c) for given float rows of any width:
+// out[s, c] = init[s, c] (or 0) plus the rows whose target is s, in
+// ascending row index, one thread an element of the table.  It replaces index_add_ (whose CUDA version adds with atomics)
+// at every accumulation of the fit: the brute-force A^T scatter, the
+// faces -> vertices fold without tables, the fold's and the curvature
+// prior's overflow rows, vertex normals and areas.  Index arithmetic is
+// 32-bit (the wrappers check N and the table size < 2^31).
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr unsigned FULL = 0xffffffffu;
 constexpr int THREADS = 256;
+constexpr int UNROLL = 4;   // rows a segment walk loads before it adds
 
 // registers a mode's row needs: its columns rounded up to 4
 template <int MODE>
@@ -52,148 +79,212 @@ struct ModeCols {
   static constexpr int P = MODE == 2 ? 20 : MODE == 3 ? 8 : 12;
 };
 
+// floats of a row's inputs a mode reads: w and res, w, or vals
 template <int MODE>
-__global__ void __launch_bounds__(THREADS) windowed_scatter_kernel(
-    const float* __restrict__ w, const float* __restrict__ res,
-    const float* __restrict__ vals, const int* __restrict__ fid,
-    const int* __restrict__ js, const int* __restrict__ starts,
-    const int* __restrict__ sub_ids, int N, int B, int A, int W, int smax,
-    int nsub, int num_segments, int C, int Cp, int discard_sub,
-    float* __restrict__ out) {
-  constexpr int P = ModeCols<MODE>::P;
+struct ModeIn {
+  static constexpr int K = MODE == 0 ? 12 : MODE == 3 ? 3 : 6;
+};
+
+__global__ void __launch_bounds__(THREADS) windowed_route_kernel(
+    const int* __restrict__ fid, const int* __restrict__ js,
+    const int* __restrict__ starts, const int* __restrict__ sub_ids, int N,
+    int B, int A, int W, int smax, int nsub, int num_segments,
+    int discard_sub, int* __restrict__ key) {
   const int n = blockIdx.x * THREADS + threadIdx.x;
-  const int lane = threadIdx.x & 31;
-
-  // every lane takes part in the warp collectives below, so rows past N
-  // carry target -1 instead of returning
+  if (n >= N) return;
+  const int f = fid[n];
+  const int* st = starts + (n / B) * A;
   int target = -1;
-  float v[P];
-#pragma unroll
-  for (int c = 0; c < P; ++c) v[c] = 0.0f;
-  if (n < N) {
-    const int f = fid[n];
-    const int* st = starts + (n / B) * A;
-    for (int a = 0; a < A; ++a) {
-      const int s = min(max((st[a] / 128) * 128, 0), smax);
-      const int off = f - s;
-      if (off >= 0 && off < W) {
-        target = f;
-        break;
-      }
-    }
-    if (target < 0 && !discard_sub) {
-      const int j = js[n];
-      if (j >= 0 && j < nsub) target = sub_ids[j];
-    }
-    if (target >= num_segments) target = -1;
-    if (target >= 0) {
-      if (MODE == 0) {
-        const float* vr = vals + (size_t)n * C;
-#pragma unroll
-        for (int c = 0; c < P; ++c) v[c] = c < C ? vr[c] : 0.0f;
-      } else {
-        const float w0 = w[3 * (size_t)n], w1 = w[3 * (size_t)n + 1],
-                    w2 = w[3 * (size_t)n + 2];
-        constexpr int c0 = MODE == 2 ? 12 : 0;   // first W2 column
-        if (MODE == 1 || MODE == 2) {
-          const float r0 = res[3 * (size_t)n], r1 = res[3 * (size_t)n + 1],
-                      r2 = res[3 * (size_t)n + 2];
-          const float wj[3] = {w0, w1, w2};
-#pragma unroll
-          for (int j = 0; j < 3; ++j) {
-            v[4 * j + 0] = wj[j] * r0;
-            v[4 * j + 1] = wj[j] * r1;
-            v[4 * j + 2] = wj[j] * r2;
-            v[4 * j + 3] = wj[j];
-          }
-        }
-        if (MODE == 2 || MODE == 3) {
-          v[c0 + 0] = w0 * w0;
-          v[c0 + 1] = w1 * w1;
-          v[c0 + 2] = w2 * w2;
-          v[c0 + 3] = w0 * w1;
-          v[c0 + 4] = w0 * w2;
-          v[c0 + 5] = w1 * w2;
-        }
-      }
+  for (int a = 0; a < A; ++a) {
+    const int s = min(max((st[a] / 128) * 128, 0), smax);
+    const int off = f - s;
+    if (off >= 0 && off < W) {
+      target = f;
+      break;
     }
   }
-
-  // sum the rows of the lanes that share a target into the lowest of
-  // them: each round, a lane adds the partial sum of the next remaining
-  // peer above it, and the peers at odd rank drop out
-  const unsigned peers = __match_any_sync(FULL, target);
-  const int leader = __ffs(peers) - 1;
-  int rank = __popc(peers & ((1u << lane) - 1u));
-  unsigned above = peers & (0xfffffffeu << lane);
-  while (__any_sync(FULL, above)) {
-    const int next = __ffs(above);
-    const int srcl = next ? next - 1 : lane;
-#pragma unroll
-    for (int c = 0; c < P; ++c) {
-      const float o = __shfl_sync(FULL, v[c], srcl);
-      if (next) v[c] += o;
-    }
-    above &= __ballot_sync(FULL, !(rank & 1));
-    rank >>= 1;
+  if (target < 0 && !discard_sub) {
+    const int j = js[n];
+    if (j >= 0 && j < nsub) target = sub_ids[j];
   }
+  key[n] = (target < 0 || target >= num_segments) ? num_segments : target;
+}
 
-  if (target >= 0 && lane == leader) {
-    float4* o = reinterpret_cast<float4*>(out + (size_t)target * Cp);
+// the inputs of row n that the mode reads
+template <int MODE>
+__device__ __forceinline__ void load_row(const float* __restrict__ w,
+                                         const float* __restrict__ res,
+                                         const float* __restrict__ vals,
+                                         int C, int n,
+                                         float (&x)[ModeIn<MODE>::K]) {
+  if constexpr (MODE == 0) {
+    const float* vr = vals + (size_t)n * C;
 #pragma unroll
-    for (int q = 0; q < P / 4; ++q) {
-      if (4 * q < Cp)
-        atomicAdd(o + q, make_float4(v[4 * q], v[4 * q + 1], v[4 * q + 2],
-                                     v[4 * q + 3]));
+    for (int c = 0; c < 12; ++c) x[c] = c < C ? vr[c] : 0.0f;
+  } else {
+#pragma unroll
+    for (int c = 0; c < 3; ++c) x[c] = w[3 * (size_t)n + c];
+    if constexpr (MODE != 3) {
+#pragma unroll
+      for (int c = 0; c < 3; ++c) x[3 + c] = res[3 * (size_t)n + c];
     }
   }
 }
 
+// acc += the mode's products of one row, each product rounded, then
+// added, column by column
 template <int MODE>
-void launch(const void* w, const void* res, const void* vals,
-            const void* fid, const void* js, const void* starts,
-            const void* sub_ids, int N, int B, int A, int W, int smax,
-            int nsub, int num_segments, int C, int Cp, int discard_sub,
-            void* out, cudaStream_t stream) {
-  const int blocks = (N + THREADS - 1) / THREADS;
-  windowed_scatter_kernel<MODE><<<blocks, THREADS, 0, stream>>>(
+__device__ __forceinline__ void add_row(const float (&x)[ModeIn<MODE>::K],
+                                        float (&acc)[ModeCols<MODE>::P]) {
+  if constexpr (MODE == 0) {
+#pragma unroll
+    for (int c = 0; c < 12; ++c) acc[c] = __fadd_rn(acc[c], x[c]);
+  }
+  if constexpr (MODE == 1 || MODE == 2) {
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+#pragma unroll
+      for (int c = 0; c < 3; ++c)
+        acc[4 * j + c] = __fadd_rn(acc[4 * j + c], __fmul_rn(x[j], x[3 + c]));
+      acc[4 * j + 3] = __fadd_rn(acc[4 * j + 3], x[j]);
+    }
+  }
+  if constexpr (MODE == 2 || MODE == 3) {
+    constexpr int c0 = MODE == 2 ? 12 : 0;   // first W2 column
+    acc[c0 + 0] = __fadd_rn(acc[c0 + 0], __fmul_rn(x[0], x[0]));
+    acc[c0 + 1] = __fadd_rn(acc[c0 + 1], __fmul_rn(x[1], x[1]));
+    acc[c0 + 2] = __fadd_rn(acc[c0 + 2], __fmul_rn(x[2], x[2]));
+    acc[c0 + 3] = __fadd_rn(acc[c0 + 3], __fmul_rn(x[0], x[1]));
+    acc[c0 + 4] = __fadd_rn(acc[c0 + 4], __fmul_rn(x[0], x[2]));
+    acc[c0 + 5] = __fadd_rn(acc[c0 + 5], __fmul_rn(x[1], x[2]));
+  }
+}
+
+template <int MODE>
+__global__ void __launch_bounds__(THREADS) windowed_reduce_kernel(
+    const float* __restrict__ w, const float* __restrict__ res,
+    const float* __restrict__ vals, const long long* __restrict__ perm,
+    const int* __restrict__ offsets, int num_segments, int C, int Cp,
+    float* __restrict__ out) {
+  constexpr int P = ModeCols<MODE>::P;
+  constexpr int K = ModeIn<MODE>::K;
+  const int s = blockIdx.x * THREADS + threadIdx.x;
+  if (s >= num_segments) return;
+  float acc[P];
+#pragma unroll
+  for (int c = 0; c < P; ++c) acc[c] = 0.0f;
+  int i = offsets[s];
+  const int end = offsets[s + 1];
+  for (; i + UNROLL <= end; i += UNROLL) {
+    float x[UNROLL][K];
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u)
+      load_row<MODE>(w, res, vals, C, (int)perm[i + u], x[u]);
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) add_row<MODE>(x[u], acc);
+  }
+  for (; i < end; ++i) {
+    float x[K];
+    load_row<MODE>(w, res, vals, C, (int)perm[i], x);
+    add_row<MODE>(x, acc);
+  }
+  float4* o = reinterpret_cast<float4*>(out + (size_t)s * Cp);
+#pragma unroll
+  for (int q = 0; q < P / 4; ++q) {
+    if (4 * q < Cp)
+      o[q] = make_float4(acc[4 * q], acc[4 * q + 1], acc[4 * q + 2],
+                         acc[4 * q + 3]);
+  }
+}
+
+__global__ void __launch_bounds__(THREADS) segment_sum_kernel(
+    const float* __restrict__ rows, const long long* __restrict__ perm,
+    const int* __restrict__ offsets, const float* __restrict__ init,
+    int num_segments, int C, float* __restrict__ out) {
+  const int e = blockIdx.x * THREADS + threadIdx.x;
+  if (e >= num_segments * C) return;
+  const int s = e / C;
+  const int c = e - s * C;
+  float acc = init ? init[e] : 0.0f;
+  int i = offsets[s];
+  const int end = offsets[s + 1];
+  for (; i + UNROLL <= end; i += UNROLL) {
+    float x[UNROLL];
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) x[u] = rows[perm[i + u] * C + c];
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) acc = __fadd_rn(acc, x[u]);
+  }
+  for (; i < end; ++i) acc = __fadd_rn(acc, rows[perm[i] * C + c]);
+  out[e] = acc;
+}
+
+template <int MODE>
+void launch_reduce(const void* w, const void* res, const void* vals,
+                   const void* perm, const void* offsets, int num_segments,
+                   int C, int Cp, void* out, cudaStream_t stream) {
+  const int blocks = (num_segments + THREADS - 1) / THREADS;
+  windowed_reduce_kernel<MODE><<<blocks, THREADS, 0, stream>>>(
       (const float*)w, (const float*)res, (const float*)vals,
-      (const int*)fid, (const int*)js, (const int*)starts,
-      (const int*)sub_ids, N, B, A, W, smax, nsub, num_segments, C, Cp,
-      discard_sub, (float*)out);
+      (const long long*)perm, (const int*)offsets, num_segments, C, Cp,
+      (float*)out);
 }
 
 }  // namespace
 
-extern "C" int csw_windowed_scatter(const void* w, const void* res,
-                                    const void* vals, const void* fid,
-                                    const void* js, const void* starts,
-                                    const void* sub_ids, int N, int B,
-                                    int A, int W, int smax, int nsub,
-                                    int num_segments, int mode, int C,
-                                    int Cp, int discard_sub, void* out,
-                                    void* stream) {
+extern "C" int csw_windowed_route(const void* fid, const void* js,
+                                  const void* starts, const void* sub_ids,
+                                  int N, int B, int A, int W, int smax,
+                                  int nsub, int num_segments,
+                                  int discard_sub, void* key,
+                                  void* stream) {
   if (N <= 0) return 0;
+  windowed_route_kernel<<<(N + THREADS - 1) / THREADS, THREADS, 0,
+                          (cudaStream_t)stream>>>(
+      (const int*)fid, (const int*)js, (const int*)starts,
+      (const int*)sub_ids, N, B, A, W, smax, nsub, num_segments,
+      discard_sub, (int*)key);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int csw_windowed_reduce(const void* w, const void* res,
+                                   const void* vals, const void* perm,
+                                   const void* offsets, int num_segments,
+                                   int mode, int C, int Cp, void* out,
+                                   void* stream) {
+  if (num_segments <= 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
   switch (mode) {
     case 0:
-      launch<0>(w, res, vals, fid, js, starts, sub_ids, N, B, A, W, smax,
-                nsub, num_segments, C, Cp, discard_sub, out, s);
+      launch_reduce<0>(w, res, vals, perm, offsets, num_segments, C, Cp,
+                       out, s);
       break;
     case 1:
-      launch<1>(w, res, vals, fid, js, starts, sub_ids, N, B, A, W, smax,
-                nsub, num_segments, C, Cp, discard_sub, out, s);
+      launch_reduce<1>(w, res, vals, perm, offsets, num_segments, C, Cp,
+                       out, s);
       break;
     case 2:
-      launch<2>(w, res, vals, fid, js, starts, sub_ids, N, B, A, W, smax,
-                nsub, num_segments, C, Cp, discard_sub, out, s);
+      launch_reduce<2>(w, res, vals, perm, offsets, num_segments, C, Cp,
+                       out, s);
       break;
     case 3:
-      launch<3>(w, res, vals, fid, js, starts, sub_ids, N, B, A, W, smax,
-                nsub, num_segments, C, Cp, discard_sub, out, s);
+      launch_reduce<3>(w, res, vals, perm, offsets, num_segments, C, Cp,
+                       out, s);
       break;
     default:
       return (int)cudaErrorInvalidValue;
   }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int csw_segment_sum(const void* rows, const void* perm,
+                               const void* offsets, const void* init,
+                               int num_segments, int C, void* out,
+                               void* stream) {
+  if (num_segments <= 0 || C <= 0) return 0;
+  segment_sum_kernel<<<(num_segments * C + THREADS - 1) / THREADS, THREADS,
+                       0, (cudaStream_t)stream>>>(
+      (const float*)rows, (const long long*)perm, (const int*)offsets,
+      (const float*)init, num_segments, C, (float*)out);
   return (int)cudaGetLastError();
 }

@@ -18,8 +18,8 @@ Counterpart of the JAX package's ``ops/correspondence.py``:
 * ``refine_correspondence`` — local descent on the face-adjacency graph.
 * ``correspondence_weights`` / ``a_apply`` / ``ah_apply`` — the
   inverse-distance weights and the A / A^T operators.
-* ``windowed_segment_sum`` — the plain form of the windowed A^T
-  accumulation.
+* ``windowed_segment_sum`` — the windowed A^T accumulation for any
+  column count, through the ordered segment sum.
 """
 
 from __future__ import annotations
@@ -30,7 +30,7 @@ import torch
 
 from ..utils.math import fma_f32
 from .ordering import _subsample_ids
-from . import cuda_window
+from . import cuda_scatter, cuda_window
 from .cuda_scatter import route
 from .cuda_window import CORR_A, CORR_W
 
@@ -464,10 +464,8 @@ def ah_apply(r, v_idx, w, n_vertices):
     """Adjoint ``A^T r``: point residuals onto the three vertices of
     each point's face."""
     vals = (w[..., None] * r[:, None, :]).reshape(-1, r.shape[1])
-    out = torch.zeros((n_vertices, r.shape[1]), dtype=r.dtype,
-                      device=r.device)
-    out.index_add_(0, v_idx.reshape(-1).long(), vals)
-    return out
+    return cuda_scatter.segment_sum_ordered(vals, v_idx.reshape(-1),
+                                            n_vertices)
 
 
 def refine_correspondence(points, centers, face_nbrs, fid, n_iter=3):
@@ -494,13 +492,9 @@ def windowed_segment_sum(vals, fid, meta: WindowedMeta, num_segments,
                          block_size=256, window=CORR_W):
     """``segment_sum(vals, fid)`` with the windowed routing: a row goes
     to fid when fid lies in one of its block's windows, else to
-    ``meta.sub_ids[meta.js]``.  The plain form of the K2 kernel for any
-    column count."""
+    ``meta.sub_ids[meta.js]``.  K2's routing and order for any column
+    count."""
     W = min(window, -(-num_segments // 128) * 128)
     tgt = route(fid, meta.js, meta.starts, meta.sub_ids, W, block_size,
                 discard_sub=False)
-    keep = (tgt >= 0) & (tgt < num_segments)
-    out = torch.zeros((num_segments, vals.shape[1]), dtype=vals.dtype,
-                      device=vals.device)
-    out.index_add_(0, tgt[keep], vals[keep])
-    return out
+    return cuda_scatter.segment_sum_ordered(vals, tgt, num_segments)

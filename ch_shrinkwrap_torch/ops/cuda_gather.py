@@ -105,9 +105,12 @@ row_group_sum.launches = 0
 
 
 def row_group_sum_plain(src, idx, care):
-    """Plain PyTorch version of :func:`row_group_sum`: the gather, the
-    mask and a sum over k."""
+    """Plain PyTorch version of :func:`row_group_sum`: the gather, then
+    the masked rows added in the kernel's order, k = 0..K-1 from zero."""
     _check_group(src, idx, care)
     R, K = care.shape
     g = row_gather_plain(src, idx).reshape(R, K, -1)
-    return (g * care[..., None].to(src.dtype)).sum(1)
+    out = torch.zeros((R, src.shape[1]), dtype=src.dtype, device=src.device)
+    for k in range(K):
+        out = torch.where(care[:, k, None], out + g[:, k], out)
+    return out

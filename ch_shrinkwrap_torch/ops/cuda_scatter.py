@@ -1,4 +1,5 @@
-"""K2: the windowed segment-sum (A^T scatter) kernel and its plain version.
+"""K2: the windowed segment-sum (A^T scatter) kernel, the ordered segment
+sum it is built on, and their plain versions.
 
 ``windowed_scatter`` is the port of the JAX package's sliding-ring
 scatter (``ops/pallas_scatter.py:257``): an exact segment-sum of per-point
@@ -10,13 +11,28 @@ the JAX package are thin wrappers over it: ``windowed_ah`` (12 columns
 ``w_j w_j'``), ``windowed_w2`` and ``windowed_segment_sum_cuda`` (up to 12
 given columns).  On a CUDA tensor ``windowed_scatter`` launches
 ``csrc/scatter.cu``; on a CPU tensor it runs ``windowed_scatter_plain``
-(the same routing, then ``index_add_``).
+(the same routing, then the plain ordered sum).
 
-Both return the first C columns of a (num_segments, C4) table whose row
+``segment_sum_ordered(rows, target, num_segments)`` is the reduction
+stage on its own, for given rows of any width: every accumulation of
+the fit on the card goes through it instead of ``index_add_``, whose
+CUDA version adds with atomics in an order that changes between runs.
+
+Both sum in one fixed order: each segment is the sum, from zero (or
+from ``init``), of its rows in ascending row index, rounded after every
+add.  That is the order of ``index_add_`` on the CPU, so the kernels
+equal their plain versions bit for bit and a fit on the card gives the
+same bits on every run.  On the card the rows are ordered by target
+with a stable sort (which moves indices and adds nothing) and one
+thread walks each segment; the plain version on the card adds the k-th
+row of every segment in step k, so no index repeats within one
+``index_add_`` and nothing races.
+
+K2 returns the first C columns of a (num_segments, C4) table whose row
 stride C4 is C rounded up to a multiple of 4 (12, 20, 8, <= 12), so the
-kernel can add each row with 16-byte vector atomics.  Callers pass the
-window starts as the search returned them (the kernel rounds them down
-to 128 and clamps them itself) and ``sub_ids`` as int32.
+kernel writes each row with 16-byte stores.  Callers pass the window
+starts as the search returned them (the kernel rounds them down to 128
+and clamps them itself) and ``sub_ids`` as int32.
 """
 
 from __future__ import annotations
@@ -65,6 +81,17 @@ def route(fid, js, starts_al, sub_ids, window, block_size, discard_sub):
     return torch.where(in_win, fid, sub_t)
 
 
+def segment_order(key, num_segments):
+    """The rows in ascending order of ``key`` (int32, ``num_segments`` =
+    dropped), rows of one key in ascending row index, and each
+    segment's first position in that order: (perm int64 (N,), offsets
+    int32 (num_segments + 1,)).  Moves indices only."""
+    skey, perm = torch.sort(key, stable=True)
+    bounds = torch.arange(num_segments + 1, dtype=key.dtype,
+                          device=key.device)
+    return perm, torch.searchsorted(skey, bounds, out_int32=True)
+
+
 def _check(mode, w, res, vals, fid, js, starts, num_segments, block_size,
            window):
     """Validate the inputs; returns (N, C, W)."""
@@ -86,21 +113,12 @@ def _check(mode, w, res, vals, fid, js, starts, num_segments, block_size,
     if nb * block_size < N:
         raise ValueError(f'{nb} blocks of {block_size} cannot hold {N} '
                          f'rows')
-    if N > INT32_MAX or num_segments > INT32_MAX:
+    if N > INT32_MAX or num_segments >= INT32_MAX:
         raise ValueError('N and num_segments must stay below 2**31')
     if window is None:
         window = CORR_W
     C = vals.shape[1] if mode == 'given' else MODE_COLS[mode]
     return N, C, min(window, -(-num_segments // 128) * 128)
-
-
-def _zero_table(num_segments, C, device):
-    """(num_segments, C) view of a zeroed table with row stride C
-    rounded up to 4, and that stride."""
-    C4 = -(-C // 4) * 4
-    out = torch.zeros((num_segments, C4), dtype=torch.float32,
-                      device=device)
-    return out, C4
 
 
 def windowed_scatter(mode, w, res, vals, fid, js, starts, sub_ids,
@@ -125,19 +143,28 @@ def windowed_scatter(mode, w, res, vals, fid, js, starts, sub_ids,
             raise TypeError(f'fid, js, starts and sub_ids must be int32, '
                             f'got {t.dtype}')
     _build.require_cuda(*f32, fid, js, starts, sub_ids)
-    out, C4 = _zero_table(num_segments, C, lead.device)
+    dev = lead.device
+    C4 = -(-C // 4) * 4
+    out = torch.empty((num_segments, C4), dtype=torch.float32, device=dev)
 
     def ptr(t):
         return None if t is None else t.data_ptr()
 
     Fp_al = -(-num_segments // 128) * 128
-    err = _build.lib().csw_windowed_scatter(
-        ptr(w), ptr(res), ptr(vals), fid.data_ptr(), js.data_ptr(),
-        starts.data_ptr(), sub_ids.data_ptr(), N, block_size,
-        starts.shape[1], W, max(Fp_al - W, 0), sub_ids.numel(),
-        num_segments, MODES[mode], C, C4, int(bool(discard_sub)),
-        out.data_ptr(), _build.stream_ptr(out))
-    _build.check(err, 'windowed_scatter')
+    L = _build.lib()
+    stream = _build.stream_ptr(out)
+    key = torch.empty(N, dtype=torch.int32, device=dev)
+    err = L.csw_windowed_route(
+        fid.data_ptr(), js.data_ptr(), starts.data_ptr(), sub_ids.data_ptr(),
+        N, block_size, starts.shape[1], W, max(Fp_al - W, 0),
+        sub_ids.numel(), num_segments, int(bool(discard_sub)),
+        key.data_ptr(), stream)
+    _build.check(err, 'windowed_route')
+    perm, offsets = segment_order(key, num_segments)
+    err = L.csw_windowed_reduce(
+        ptr(w), ptr(res), ptr(vals), perm.data_ptr(), offsets.data_ptr(),
+        num_segments, MODES[mode], C, C4, out.data_ptr(), stream)
+    _build.check(err, 'windowed_reduce')
     windowed_scatter.launches += 1
     return out[:, :C]
 
@@ -149,19 +176,105 @@ def windowed_scatter_plain(mode, w, res, vals, fid, js, starts, sub_ids,
                            num_segments, block_size=256, window=None,
                            discard_sub=False):
     """Plain PyTorch version of :func:`windowed_scatter`: the same
-    routing, then ``index_add_`` into the same padded-stride table."""
+    routing, then the plain ordered sum into the same padded-stride
+    table."""
     N, C, W = _check(mode, w, res, vals, fid, js, starts, num_segments,
                      block_size, window)
     Fp_al = -(-num_segments // 128) * 128
     starts_al = torch.clamp((starts.int() // 128) * 128, 0,
                             max(Fp_al - W, 0))
     rows = _columns(mode, w, res, vals)
+    C4 = -(-C // 4) * 4
+    if C4 > C:
+        rows = torch.cat([rows, rows.new_zeros((N, C4 - C))], dim=1)
     tgt = route(fid, js, starts_al, sub_ids, W, block_size, discard_sub)
-    keep = (tgt >= 0) & (tgt < num_segments)
-    out, _ = _zero_table(num_segments, C, rows.device)
-    view = out[:, :C]
-    view.index_add_(0, tgt[keep], rows[keep])
-    return view
+    return segment_sum_ordered_plain(rows, tgt, num_segments)[:, :C]
+
+
+def _check_segment(rows, target, num_segments, init):
+    if rows.dim() not in (1, 2):
+        raise ValueError(f'rows must be (N,) or (N, C), got '
+                         f'{tuple(rows.shape)}')
+    if target.shape != rows.shape[:1]:
+        raise ValueError(f'target must be ({rows.shape[0]},), got '
+                         f'{tuple(target.shape)}')
+    shape = (num_segments,) + tuple(rows.shape[1:])
+    if init is not None and (tuple(init.shape) != shape
+                             or init.dtype != rows.dtype):
+        raise ValueError(f'init must be {shape} {rows.dtype}')
+    C = rows.shape[1] if rows.dim() == 2 else 1
+    if rows.shape[0] > INT32_MAX or num_segments * max(C, 1) > INT32_MAX:
+        raise ValueError('rows and the table must stay below 2**31')
+    return shape, C
+
+
+def segment_sum_ordered(rows, target, num_segments, init=None):
+    """``out[s] = init[s] (or 0) + sum of rows[n] with target[n] == s``,
+    added in ascending n; rows whose target lies outside
+    ``[0, num_segments)`` are dropped.  ``rows`` (N,) or (N, C), float32
+    (any type on the CPU)."""
+    shape, C = _check_segment(rows, target, num_segments, init)
+    if rows.device.type == 'cpu':
+        return segment_sum_ordered_plain(rows, target, num_segments, init)
+    if rows.dtype != torch.float32:
+        raise TypeError(f'rows must be float32, got {rows.dtype}')
+    rows_c = rows.contiguous()
+    init_c = None if init is None else init.contiguous()
+    t = target.long()
+    key = torch.where((t >= 0) & (t < num_segments), t,
+                      num_segments).int()
+    _build.require_cuda(rows_c, key, *(() if init_c is None else (init_c,)))
+    perm, offsets = segment_order(key, num_segments)
+    out = torch.empty(shape, dtype=rows.dtype, device=rows.device)
+    err = _build.lib().csw_segment_sum(
+        rows_c.data_ptr(), perm.data_ptr(), offsets.data_ptr(),
+        None if init_c is None else init_c.data_ptr(), num_segments, C,
+        out.data_ptr(), _build.stream_ptr(out))
+    _build.check(err, 'segment_sum')
+    segment_sum_ordered.launches += 1
+    return out
+
+
+segment_sum_ordered.launches = 0
+
+
+def segment_sum_ordered_plain(rows, target, num_segments, init=None):
+    """Plain PyTorch version of :func:`segment_sum_ordered`:
+    ``index_add_`` on the CPU, which adds each segment's rows in
+    ascending row index; on the card :func:`segment_sum_stepwise`."""
+    shape, _ = _check_segment(rows, target, num_segments, init)
+    if rows.device.type != 'cpu':
+        return segment_sum_stepwise(rows, target, num_segments, init)
+    t = target.long()
+    keep = (t >= 0) & (t < num_segments)
+    out = rows.new_zeros(shape) if init is None else init.clone()
+    return out.index_add_(0, t[keep], rows[keep])
+
+
+def segment_sum_stepwise(rows, target, num_segments, init=None):
+    """The ordered sum on any device without a racing add: step k adds
+    the k-th row (in ascending row index) of every segment, so no index
+    repeats within one ``index_add_``.  As many steps as the longest
+    segment has rows."""
+    shape, _ = _check_segment(rows, target, num_segments, init)
+    out = rows.new_zeros(shape) if init is None else init.clone()
+    t = target.long()
+    kept = torch.nonzero((t >= 0) & (t < num_segments))[:, 0]
+    if kept.numel() == 0:
+        return out
+    tk = t[kept]
+    st, by_t = torch.sort(tk, stable=True)
+    rank = torch.empty_like(st)
+    rank[by_t] = (torch.arange(st.numel(), device=st.device)
+                  - torch.searchsorted(st, st))
+    # rows grouped by their rank in their segment, in ascending row index
+    sr, by_rank = torch.sort(rank, stable=True)
+    steps = torch.searchsorted(
+        sr, torch.arange(int(sr[-1]) + 2, device=sr.device)).tolist()
+    src, dst = kept[by_rank], tk[by_rank]
+    for a, b in zip(steps[:-1], steps[1:]):
+        out.index_add_(0, dst[a:b], rows[src[a:b]])
+    return out
 
 
 def windowed_ah(w, res, fid, js, starts, sub_ids, num_segments,

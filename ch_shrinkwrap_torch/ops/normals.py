@@ -1,12 +1,16 @@
 """Face/vertex normals and areas on padded torch tensors.
 
 Counterpart of the JAX package's ``ops/normals.py``: gathers over the
-padded face table plus ``index_add_`` folds onto vertices.
+padded face table plus folds onto vertices through the ordered segment
+sum (``cuda_scatter.segment_sum_ordered``: a kernel on the card, the
+same bits on every run).
 """
 
 from __future__ import annotations
 
 import torch
+
+from . import cuda_scatter
 
 
 def face_geometry(positions, faces, f_mask, tri=None):
@@ -47,17 +51,14 @@ def normalize_vertex_normals(vn):
 def vertex_normals(positions, faces, f_mask, n_vertices, tri=None):
     """Angle-weighted unit vertex normals."""
     corners = vertex_normal_corners(positions, faces, f_mask, tri=tri)
-    vn = torch.zeros((n_vertices, 3), dtype=positions.dtype,
-                     device=positions.device)
-    vn.index_add_(0, faces.reshape(-1).long(), corners.reshape(-1, 3))
+    vn = cuda_scatter.segment_sum_ordered(corners.reshape(-1, 3),
+                                          faces.reshape(-1), n_vertices)
     return normalize_vertex_normals(vn)
 
 
 def vertex_areas(positions, faces, f_mask, n_vertices):
     """Sum of incident face areas per vertex."""
     _, areas = face_geometry(positions, faces, f_mask)
-    out = torch.zeros((n_vertices,), dtype=positions.dtype,
-                      device=positions.device)
-    out.index_add_(0, faces.reshape(-1).long(),
-                   areas[:, None].expand(-1, 3).reshape(-1))
-    return out
+    return cuda_scatter.segment_sum_ordered(
+        areas[:, None].expand(-1, 3).reshape(-1), faces.reshape(-1),
+        n_vertices)

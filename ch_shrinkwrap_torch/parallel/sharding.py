@@ -8,7 +8,7 @@ over the ranks in contiguous slices of whole 256-point blocks of the
 replicated on every rank.  Inside ``cg_block(spmd_mesh=...)`` each rank
 finds the nearest faces of its own slice against its full copy of the
 face table (exact, no collective), accumulates A^T of its points onto
-the faces (K2 or ``index_add_``) and joins one all-reduce of the face
+the faces (K2 or the ordered segment sum) and joins one all-reduce of the face
 accumulators a CG iteration, plus one of the small reductions (the
 point-side normal equations and the residual norm).  The vertex-side
 work (K3, K3f, the curvature prior, the subspace solve) runs on every
@@ -18,9 +18,9 @@ Ranks are processes: ``run_ranks`` runs rank 0 in the calling process
 and spawns ranks 1..n-1 (the ``spawn`` start method: CUDA cannot fork),
 joined through a ``FileStore`` in a fresh temporary directory.  A fit
 keeps its ranks in step: after each CG block every rank takes rank 0's
-vertex positions (float atomics on the vertex side may part the ranks
-by an ulp, and the host passes between blocks are deterministic only
-on identical inputs), and after each boundary one all-reduce compares
+vertex positions (the host passes between blocks are deterministic
+only on identical inputs, and an all-reduce of more than two ranks may
+add in another order than a rank's own sums), and after each boundary one all-reduce compares
 (V, F) and checksums of the faces and vertices, raising on a mismatch.
 Every group has a timeout, so a rank that strays fails instead of
 hanging.

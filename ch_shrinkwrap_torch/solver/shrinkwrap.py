@@ -35,6 +35,7 @@ import torch
 import torch.distributed as dist
 
 from ..ops import correspondence as corr
+from ..ops import cuda_scatter
 from ..ops import normals as _normals
 from ..ops.curvature import curvature_grad
 from ..ops.cuda_gather import row_gather, row_group_sum
@@ -95,8 +96,9 @@ def compute_ncc(f, nbr_v, vnormals, point_influence, v_mask, kmajor=None):
         if ov is not None:
             sv, su = ov
             ovf = vm[sv].to(f.dtype)
-            sum_pos = sum_pos.index_add(0, sv, f[su] * ovf[:, None])
-            ms = ms.index_add(0, sv, ovf)
+            sum_pos = cuda_scatter.segment_sum_ordered(
+                f[su] * ovf[:, None], sv, Vp, init=sum_pos)
+            ms = cuda_scatter.segment_sum_ordered(ovf, sv, Vp, init=ms)
         vc = sum_pos / torch.clamp(ms, min=1.0)[:, None]
         t_pos = (pos * nrm).sum(-1)                           # (Kn, Vp)
         t_vc = (vc[None] * nrm).sum(-1)
@@ -108,7 +110,8 @@ def compute_ncc(f, nbr_v, vnormals, point_influence, v_mask, kmajor=None):
             ndn_o = (n_u * vnormals[sv]).sum(-1)
             den_o = torch.sqrt(2.0 * (torch.clamp(ndn_o, min=0.0) + 1.0))
             t_o = ((f[su] - vc[sv]) * n_u).sum(-1) / den_o * ovf
-            a_num = a_num.index_add(0, sv, t_o)
+            a_num = cuda_scatter.segment_sum_ordered(t_o, sv, Vp,
+                                                     init=a_num)
         return _ncc_finish(f, vnormals, point_influence, sum_pos, ms,
                            a_num)
     nmask = (nbr_v >= 0) & vm[:, None]
@@ -131,15 +134,15 @@ def _fold(fused, faces, Vp, tables):
     """faces -> vertices fold of the (3 Fp, C) corner rows: with
     ``tables``, K3's fused gather + masked sum of each vertex's
     incident rows (and the overflow rows added exactly); else
-    ``index_add_``."""
+    the ordered segment sum."""
     if tables is None:
-        out = torch.zeros((Vp, fused.shape[1]), dtype=fused.dtype,
-                          device=fused.device)
-        return out.index_add_(0, faces.reshape(-1).long(), fused)
+        return cuda_scatter.segment_sum_ordered(fused, faces.reshape(-1),
+                                                Vp)
     out = row_group_sum(fused, tables.fold_idx, tables.fold_care)
     if tables.fold_ov is not None:
         ov_rows, ov_verts = tables.fold_ov
-        out = out.index_add(0, ov_verts, fused[ov_rows])
+        out = cuda_scatter.segment_sum_ordered(fused[ov_rows], ov_verts, Vp,
+                                               init=out)
     return out
 
 
@@ -291,8 +294,8 @@ def cg_block(positions, faces, f_mask, v_mask, nbr_v,
         else:
             ah_in = torch.cat([res, pmask3], dim=1)          # (N, 4)
             per_corner = (w[..., None] * ah_in[:, None, :]).reshape(N, 12)
-            face_acc = torch.zeros((Fp, 12), dtype=f32, device=dev)
-            face_acc.index_add_(0, fi_l, per_corner)
+            face_acc = cuda_scatter.segment_sum_ordered(per_corner, fi_l,
+                                                        Fp)
         if rank is not None:
             # the ranks' accumulators of their own points: one all-reduce
             if W2 is None:

@@ -2,27 +2,32 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels (K1 window search, K2 windowed scatter,
-K3 row gather and K3f, the fold's fused gather + masked group sum) with
-nvcc and the native host engine (native/topology.cpp, the remesh and
-surgery of every fit) with g++, failing when either cannot be built or
-loaded; holds each kernel against its plain PyTorch version at the shapes of the
-fit's path, and reads each kernel's device time (torch.profiler kernel
-events) beside its bound, its plain version's and a library call's, on
-the path's own inputs.  It then times the bench configuration's CG
-block, and drives the 20-iteration no-surgery MembraneMesh.shrink_wrap
-fit of a 1e6-localization sphere cloud (R = 500 nm, sigma = 5 nm) from
-its marching-cubes seed, counting the kernels' launches during the fit.
-The fit is then repeated with every kernel replaced by its plain
-version (the two surfaces must agree), and run for 39 iterations (the
-reference recipe's default), which must land within 1.5 nm of R.
+Builds the port's CUDA kernels (K1 window search, K2 windowed scatter
+and the ordered segment sum every other accumulation of the fit runs
+through, K3 row gather and K3f, the fold's fused gather + masked group
+sum) with nvcc and the native host engine (native/topology.cpp, the
+remesh and surgery of every fit) with g++, failing when either cannot be
+built or loaded; holds each kernel against its plain PyTorch version at
+the shapes of the fit's path (bit for bit: every kernel sums in its plain
+version's order), and reads each kernel's device time (torch.profiler
+kernel events) beside its bound, its plain version's and a library
+call's, on the path's own inputs.  It then times the bench
+configuration's CG block, and drives the 20-iteration no-surgery
+MembraneMesh.shrink_wrap fit of a 1e6-localization sphere cloud (R = 500
+nm, sigma = 5 nm) from its marching-cubes seed twice, counting the
+kernels' launches during the first fit: the two final meshes must be
+equal bit for bit (their sha256 digests are printed).  The fit is then
+repeated with every kernel replaced by its plain version (the two
+surfaces must agree), and run for 39 iterations (the reference recipe's
+default), which must land within 1.5 nm of R.
 
 Phase fit99 drives the north-star fit on the same cloud and seed: 99
 iterations, remesh every 5, neck removal after iteration 9, hole
 punching every 13, minimum edge 5 nm (scripts/torch_e2e_fit.py's
-defaults).  It must end within 1.5 nm of R with a radial std below
-1 nm, one closed manifold sphere, K1 launched once an iteration and
-K2, K3 and K3f launched; it prints the trace and the wall by phase.
+defaults), twice.  It must end within 1.5 nm of R with a radial std
+below 1 nm, one closed manifold sphere, K1 launched once an iteration
+and K2, K3 and K3f launched, and the two runs' final meshes equal bit
+for bit; it prints the trace, the wall by phase and the digests.
 Phase fit.punch fits an oblate seed to a torus cloud and punches
 inside the loop on the card, and must make the same cuts as the same
 fit on the CPU.
@@ -38,12 +43,16 @@ and through their plain versions must agree within 0.2 nm in R.
 Phase sweep runs the evaluation harness on configs/test_ersim.yaml
 (the ERSim shape, 39 iterations): the entry must write a metrics row of
 the right topology (euler 0, one manifold component), and a second
-evaluate in the same directory must skip it.
+evaluate in the same directory must skip it.  Its brute-force search is
+the path of segment_sum_ordered (the A^T scatter), which must launch
+there; the windowed fits at their capacity give it no work, so the
+kernel table's launches of segment_sum_ordered are the sweep's.
 
 Phase shard runs the bench configuration's CG block through
 sharded_cg_block at world size 1 (NCCL) and 2 against the one-process
 block (first-iteration face ids equal, first-iteration positions within
-5e-3), then the 20-iteration fit through sharded_fit over two ranks
+5e-3; two one-process blocks equal bit for bit), then the 20-iteration
+fit through sharded_fit over two ranks
 (two cards over NCCL where there are two, else both on cuda:0 over
 gloo): the same gates as the fit, within 0.2 nm of the one-process R,
 K1 and K2 launched once an iteration on rank 0, and the ranks found in
@@ -56,7 +65,10 @@ fit with each.  Phase grids runs four entries of the sweep grids
 on two capsules directly and through the recipe route, the
 tetrahedron) at once, one spawned worker each: every entry must write
 a metrics row of a manifold surface with the expected topology and an
-sdf_rms within its stated bound of the JAX package's.
+sdf_rms within its stated bound of the JAX package's.  Beside them two
+workers run one more entry (REPEAT_ENTRY, a separator row whose
+topology used to change between runs): their rows must be equal in every
+field but the fit's duration.
 
 Phases run in order (env, build, kernels, cg_block, fit, shard, corr,
 fit99, fit.punch, image, sweep, grids), each under a watchdog deadline:
@@ -85,7 +97,7 @@ import numpy as np
 # run on an H100 or more; they add up to 1150, so the whole run ends
 # inside 1200 s (the expected total is about 6 minutes)
 DEADLINES = {'env': 15, 'build': 40, 'kernels': 100, 'cg_block': 20,
-             'fit': 110, 'shard': 110, 'corr': 250, 'fit99': 45,
+             'fit': 110, 'shard': 110, 'corr': 235, 'fit99': 60,
              'punch': 40, 'image': 100, 'sweep': 180, 'grids': 140}
 
 # H100 SXM peaks (NVIDIA data sheet) for the bound column
@@ -210,6 +222,53 @@ def bound_ms(n_bytes, n_flops):
 
 def nbytes(*tensors):
     return int(sum(t.numel() * t.element_size() for t in tensors))
+
+
+def to_cpu(args):
+    import torch
+    return tuple(a.cpu() if torch.is_tensor(a) else a for a in args)
+
+
+def bits_differ(a, b):
+    """How many values of two float tensors of one shape differ in
+    their bits (on the CPU; NaN payloads and signed zeros count)."""
+    import torch
+    a, b = a.detach().cpu().contiguous(), b.detach().cpu().contiguous()
+    check(a.shape == b.shape and a.dtype == b.dtype,
+          f'bits_differ: {a.shape} {a.dtype} against {b.shape} {b.dtype}')
+    as_int = torch.int64 if a.element_size() == 8 else torch.int32
+    return int((a.view(as_int) != b.view(as_int)).sum())
+
+
+def digest(*arrays):
+    """sha256 of the arrays' types, shapes and bytes, in order."""
+    import hashlib
+    h = hashlib.sha256()
+    for a in arrays:
+        a = np.ascontiguousarray(a)
+        h.update(str((a.dtype, a.shape)).encode())
+        h.update(a.tobytes())
+    return h.hexdigest()
+
+
+def library_index_add(timer, out, index, rows, ours):
+    """One library call for an ordered segment sum: ``index_add_`` of
+    the same rows into ``out``, under torch's deterministic mode
+    (``library_ms``; the mode is restored afterwards) and as it runs by
+    default, with float atomics (``library_racing_ms``), and how many
+    values of the deterministic result differ in bits from ``ours``."""
+    import torch
+    prev = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        det_ms = timer(lambda: out.index_add_(0, index, rows))['ms']
+        det = torch.zeros_like(out).index_add_(0, index, rows)
+    finally:
+        torch.use_deterministic_algorithms(prev)
+    return dict(library_ms=det_ms,
+                library_racing_ms=timer(
+                    lambda: out.index_add_(0, index, rows))['ms'],
+                library_bits_differ=bits_differ(det, ours))
 
 
 def phase_env():
@@ -462,9 +521,16 @@ def phase_kernels(device='cuda', n_points=N_POINTS, mesh_fn=_kernel_mesh,
     from ch_shrinkwrap_torch.ops import cuda_window, cuda_scatter
     from ch_shrinkwrap_torch.ops import cuda_gather
     from ch_shrinkwrap_torch.solver.shrinkwrap import _fold
+    t_start = time.time()
+
+    def progress(what):
+        print(f'  kernels: {what} at {time.time() - t_start:.1f} s',
+              flush=True)
+
     inp = path_inputs(device, n_points, mesh_fn)
     dev, N, Fp, Vp, W = inp.dev, inp.N, inp.Fp, inp.Vp, inp.W
     recs = {}
+    progress('inputs')
 
     # ---- K1 --------------------------------------------------------
     d2k, fidk, jsk = inp.k1_out
@@ -521,10 +587,16 @@ def phase_kernels(device='cuda', n_points=N_POINTS, mesh_fn=_kernel_mesh,
                     V=int(inp.mesh.vertices.shape[0]), Vp=Vp, Fp=Fp,
                     n_cand=n_cand))
 
+    progress('K1')
+
     # ---- K2: the path's rows, and rows outside every window ----------
+    # each mode against its plain version on a CPU copy of the same
+    # inputs: equal bit for bit (both add each face's rows in ascending
+    # row index); the library call is index_add_ of the mode's rows,
+    # under torch's deterministic mode and, beside it, racing
     vals = torch.randn((N, 12), generator=inp.g, device=dev)
     fid_adv = adversarial_rows(inp)
-    k2_err, k2 = {}, {}
+    k2_bits, k2 = {}, {}
     for rows_name, fid in (('path', inp.fid), ('adversarial', fid_adv)):
         tgt = cuda_scatter.route(fid, inp.js, inp.meta_starts, inp.sub_ids,
                                  W, 256, False)
@@ -533,31 +605,42 @@ def phase_kernels(device='cuda', n_points=N_POINTS, mesh_fn=_kernel_mesh,
             check(n_out == 0, f'K2: {n_out} path rows leave their face')
         else:
             check(n_out > 0, 'K2: no adversarial row outside every window')
+        keep = (tgt >= 0) & (tgt < Fp)
+        longest = int(torch.bincount(tgt[keep], minlength=Fp).max())
         for mode in ('ah', 'ahw2', 'w2', 'given'):
             args = (mode, inp.w, inp.res if mode in ('ah', 'ahw2') else None,
                     vals if mode == 'given' else None, fid, inp.js,
                     inp.meta_starts, inp.sub_ids, Fp)
             out = cuda_scatter.windowed_scatter(*args)
-            ref = cuda_scatter.windowed_scatter_plain(*args)
-            err = float((out - ref).abs().max())
-            tol = 1e-4 * float(ref.abs().max())
-            check(err <= tol, f'K2 {mode} on {rows_name} rows: max err '
-                  f'{err} > {tol}')
-            k2_err[f'{rows_name}_{mode}'] = err
+            ref = cuda_scatter.windowed_scatter_plain(*to_cpu(args))
+            n_bits = bits_differ(out, ref)
+            check(n_bits == 0, f'K2 {mode} on {rows_name} rows: {n_bits} '
+                  f'values differ from the plain version in bits (max '
+                  f'{float((out.cpu() - ref).abs().max())})')
+            again = cuda_scatter.windowed_scatter(*args)
+            check(bits_differ(out, again) == 0,
+                  f'K2 {mode} on {rows_name} rows: two launches differ')
+            k2_bits[f'{rows_name}_{mode}'] = n_bits
         ah = ('ah', inp.w, inp.res, None, fid, inp.js, inp.meta_starts,
               inp.sub_ids, Fp)
         rows = cuda_scatter._columns('ah', inp.w, inp.res, None)
-        keep = tgt >= 0
         rows_k, tgt_k = rows[keep].contiguous(), tgt[keep].contiguous()
         lib_out = torch.zeros((Fp, 12), device=dev)
-        t2 = timer(lambda: cuda_scatter.windowed_scatter(*ah),
-                   match='windowed_scatter')
+        t2 = timer(lambda: cuda_scatter.windowed_scatter(*ah))
         k2[rows_name] = dict(
             ms=t2['ms'], call_ms=t2['call_ms'], rows_outside=n_out,
-            plain_ms=timer(lambda: cuda_scatter.windowed_scatter_plain(
-                *ah), reps=5)['ms'],
-            library_ms=timer(lambda: lib_out.index_add_(0, tgt_k,
-                                                        rows_k))['ms'])
+            longest_segment=longest,
+            reduce_ms=timer(lambda: cuda_scatter.windowed_scatter(*ah),
+                            match='windowed_reduce')['ms'],
+            route_ms=timer(lambda: cuda_scatter.windowed_scatter(*ah),
+                           match='windowed_route')['ms'],
+            # the plain version on the card is a loop of small launches
+            # (one step a row of the longest segment): its wall, from
+            # CUDA events, not a profile of thousands of events
+            plain_ms=time_ms(lambda: cuda_scatter.windowed_scatter_plain(
+                *ah), reps=3, warmup=1),
+            **library_index_add(timer, lib_out, tgt_k, rows_k,
+                                cuda_scatter.windowed_scatter(*ah)))
     k2_bytes = (nbytes(inp.w, inp.res, inp.fid, inp.js, inp.meta_starts,
                        inp.sub_ids) + Fp * 12 * 4)
     bms, bby = bound_ms(k2_bytes, 24.0 * N)
@@ -565,11 +648,77 @@ def phase_kernels(device='cuda', n_points=N_POINTS, mesh_fn=_kernel_mesh,
         name='windowed_scatter', route='cuda',
         source='ch_shrinkwrap_torch/csrc/scatter.cu',
         replaces='JAX package ops/pallas_scatter.py:44 _scatter_kernel',
-        max_abs_err=k2_err['path_ah'], ms=k2['path']['ms'],
+        max_abs_err=0.0, ms=k2['path']['ms'],
         call_ms=k2['path']['call_ms'], plain_ms=k2['path']['plain_ms'],
         bound_ms=bms, bound_by=bby, library_ms=k2['path']['library_ms'],
-        checks=dict(adversarial=k2['adversarial'],
-                    **{f'err_{k}': v for k, v in k2_err.items()}))
+        checks=dict(path={k: v for k, v in k2['path'].items()
+                          if k not in ('ms', 'call_ms', 'plain_ms')},
+                    adversarial=k2['adversarial'],
+                    **{f'bits_differ_{k}': v for k, v in k2_bits.items()}))
+
+    progress('K2')
+
+    # ---- the ordered segment sum: the fit's other accumulations -------
+    # vertex normals' corner rows (3 Fp, 3) onto the vertices (timed),
+    # the fold's (3 Fp, 7) corner rows, the brute-force search's A^T
+    # rows (N, 12) onto the faces, and the fold's overflow onto a table
+    # (init): each equal, bit for bit, to the plain version on a CPU copy
+    from ch_shrinkwrap_torch.ops import normals
+    ma = inp.ma
+    corners = normals.vertex_normal_corners(ma.positions, ma.faces,
+                                            ma.f_mask).reshape(-1, 3)
+    faces_t = ma.faces.reshape(-1)
+    ah_rows = cuda_scatter._columns('ah', inp.w, inp.res, None)
+    init = torch.randn((Vp, 7), generator=inp.g, device=dev)
+    cases = {'normals': (corners, faces_t, Vp, None),
+             'fold': (inp.fused, faces_t, Vp, None),
+             'brute_ah': (ah_rows, inp.fid, Fp, None),
+             'fold_init': (inp.fused, faces_t, Vp, init)}
+    seg_bits = {}
+    for key, (rows, tgt, S, ini) in cases.items():
+        out = cuda_scatter.segment_sum_ordered(rows, tgt, S, init=ini)
+        ref = cuda_scatter.segment_sum_ordered_plain(
+            *to_cpu((rows, tgt, S)), init=None if ini is None else ini.cpu())
+        n_bits = bits_differ(out, ref)
+        check(n_bits == 0, f'segment_sum_ordered {key}: {n_bits} values '
+              f'differ from the plain version in bits')
+        seg_bits[key] = n_bits
+    step = cuda_scatter.segment_sum_stepwise(corners, faces_t, Vp)
+    check(bits_differ(step, cuda_scatter.segment_sum_ordered(
+        corners, faces_t, Vp)) == 0,
+        'segment_sum_ordered: the plain version on the card differs')
+    tl = faces_t.long()
+    ts = timer(lambda: cuda_scatter.segment_sum_ordered(corners, faces_t,
+                                                        Vp))
+    lib_out = torch.zeros((Vp, 3), device=dev)
+    rec_s = dict(
+        ms=ts['ms'], call_ms=ts['call_ms'],
+        kernel_ms=timer(lambda: cuda_scatter.segment_sum_ordered(
+            corners, faces_t, Vp), match='segment_sum')['ms'],
+        plain_ms=time_ms(lambda: cuda_scatter.segment_sum_ordered_plain(
+            corners, faces_t, Vp), reps=5, warmup=1),
+        longest_segment=int(torch.bincount(tl, minlength=Vp).max()),
+        **library_index_add(timer, lib_out, tl, corners,
+                            cuda_scatter.segment_sum_ordered(
+                                corners, faces_t, Vp)))
+    tb = timer(lambda: cuda_scatter.segment_sum_ordered(ah_rows, inp.fid,
+                                                        Fp))
+    bms, bby = bound_ms(nbytes(corners, faces_t) + Vp * 3 * 4,
+                        float(corners.numel()))
+    recs['segsum'] = dict(
+        name='segment_sum_ordered', route='cuda',
+        source='ch_shrinkwrap_torch/csrc/scatter.cu',
+        replaces='JAX package ops/pallas_scatter.py:44 _scatter_kernel '
+                 '(its reduction, for the index_add_ sites)',
+        max_abs_err=0.0, ms=rec_s['ms'], call_ms=rec_s['call_ms'],
+        plain_ms=rec_s['plain_ms'], bound_ms=bms, bound_by=bby,
+        library_ms=rec_s['library_ms'],
+        checks=dict(normals={k: v for k, v in rec_s.items()
+                             if k not in ('ms', 'call_ms', 'plain_ms')},
+                    brute_ah_ms=tb['ms'], brute_ah_call_ms=tb['call_ms'],
+                    **{f'bits_differ_{k}': v for k, v in seg_bits.items()}))
+
+    progress('segment_sum_ordered')
 
     # ---- K3: the tri, ncc and S gathers of one iteration --------------
     k3 = dict(ms=0.0, call_ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0)
@@ -608,19 +757,23 @@ def phase_kernels(device='cuda', n_points=N_POINTS, mesh_fn=_kernel_mesh,
                         'shrink prior\'s S, not in the sum)',
                     **per_call))
 
+    progress('K3')
+
     # ---- K3f: the fold's fused gather + masked group sum --------------
     t = inp.tables
     fused, faces_l = inp.fused, inp.ma.faces.reshape(-1).long()
     out = cuda_gather.row_group_sum(fused, t.fold_idx, t.fold_care)
     ref = cuda_gather.row_group_sum_plain(fused, t.fold_idx, t.fold_care)
     err = float((out - ref).abs().max())
-    check(err <= 1e-4 * float(ref.abs().max()),
-          f'K3f vs its plain version: {err}')
+    # the kernel and its plain version add k = 0..K-1 in order
+    n_bits = bits_differ(out, ref)
+    check(n_bits == 0, f'K3f: {n_bits} values differ from its plain '
+          f'version in bits (max {err})')
     fold = _fold(fused, inp.ma.faces, Vp, t)
     fold_ref = _fold(fused, inp.ma.faces, Vp, None)
     fold_err = float((fold - fold_ref).abs().max())
     check(fold_err <= 1e-4 * float(fold_ref.abs().max()),
-          f'K3f fold vs index_add_: {fold_err}')
+          f'K3f fold vs the ordered segment sum: {fold_err}')
     lib_out = torch.zeros((Vp, 7), device=dev)
     KI = t.fold_care.shape[1]
     care_f = t.fold_care[..., None].float()
@@ -645,9 +798,11 @@ def phase_kernels(device='cuda', n_points=N_POINTS, mesh_fn=_kernel_mesh,
         library_ms=timer(lambda: lib_out.index_add_(0, faces_l,
                                                     fused))['ms'],
         checks=dict(fold_err=fold_err,
+                    fold_bits_differ=bits_differ(fold, fold_ref),
                     gather_mask_sum_ms=timer(gather_mask_sum)['ms'],
                     fold_ms=timer(lambda: _fold(fused, inp.ma.faces, Vp,
                                                 t))['ms']))
+    progress('K3f')
     return recs
 
 
@@ -721,13 +876,23 @@ def phase_cg_block(device='cuda', n_points=N_POINTS, ico_sub=7, rf=5,
                 n_done=int(diag.n_done)), prof_table
 
 
+# the kernels of the windowed fit at its capacity (the fit, fit99,
+# image and shard phases): every fold runs through K3f, and no vertex of
+# their meshes has more incident faces or neighbours than the tables
+# hold, so segment_sum_ordered has no work there; it carries the
+# brute-force search's A^T scatter and the fold without tables, the
+# path of the sweep phase (and of fit.punch)
+WINDOWED_PATH = ('K1', 'K2', 'K3', 'K3f')
+
+
 def kernel_wrappers():
-    """The four kernel wrappers, whose ``launches`` count kernel
+    """The five kernel wrappers, whose ``launches`` count kernel
     launches."""
     from ch_shrinkwrap_torch.ops import cuda_window, cuda_scatter
     from ch_shrinkwrap_torch.ops import cuda_gather
     return {'K1': cuda_window.window_min,
             'K2': cuda_scatter.windowed_scatter,
+            'segsum': cuda_scatter.segment_sum_ordered,
             'K3': cuda_gather.row_gather,
             'K3f': cuda_gather.row_group_sum}
 
@@ -740,16 +905,19 @@ def plain_versions():
     from ch_shrinkwrap_torch.ops import cuda_gather
     from ch_shrinkwrap_torch.solver import shrinkwrap
     saved = (cuda_window.window_min, cuda_scatter.windowed_scatter,
-             shrinkwrap.row_gather, shrinkwrap.row_group_sum)
+             cuda_scatter.segment_sum_ordered, shrinkwrap.row_gather,
+             shrinkwrap.row_group_sum)
     cuda_window.window_min = cuda_window.window_min_plain
     cuda_scatter.windowed_scatter = cuda_scatter.windowed_scatter_plain
+    cuda_scatter.segment_sum_ordered = cuda_scatter.segment_sum_ordered_plain
     shrinkwrap.row_gather = cuda_gather.row_gather_plain
     shrinkwrap.row_group_sum = cuda_gather.row_group_sum_plain
     try:
         yield
     finally:
         (cuda_window.window_min, cuda_scatter.windowed_scatter,
-         shrinkwrap.row_gather, shrinkwrap.row_group_sum) = saved
+         cuda_scatter.segment_sum_ordered, shrinkwrap.row_gather,
+         shrinkwrap.row_group_sum) = saved
 
 
 def phase_fit(device='cuda', n_points=N_POINTS, grid_n=48, iters=20,
@@ -789,6 +957,8 @@ def phase_fit(device='cuda', n_points=N_POINTS, grid_n=48, iters=20,
                euler=int(mesh.euler_characteristic),
                manifold=bool(mesh.is_manifold), components=int(n_comp),
                method=mesh._last_corr_method,
+               sha_vertices=digest(mesh.vertices),
+               sha_faces=digest(mesh.faces),
                trace=[(rec.kind, rec.iteration, round(rec.wall_time, 3),
                        rec.n_vertices, rec.extra.get('v_cap', ''))
                       for rec in mesh.trace.records])
@@ -814,18 +984,26 @@ def check_fit(fit, radius=RADIUS, mean_tol=1.5, tag='fit'):
     check(fit['components'] == 1, f"{tag} components {fit['components']}")
 
 
+def same_bits(a, b):
+    """Whether two fits' final meshes are equal bit for bit."""
+    return (a['sha_vertices'] == b['sha_vertices']
+            and a['sha_faces'] == b['sha_faces'])
+
+
 def check_same_fit(fit, ref):
     """The kernel path against the plain path on the same card: the
-    same surface up to the order of atomic sums (K2's and index_add_'s),
-    which remeshing amplifies — on an H100 the two paths differed by
-    up to 0.06 nm in R and 0.2% in vertex count over four runs."""
+    same surface (on an H100, when K2 and index_add_ still added with
+    float atomics, the two paths differed by up to 0.06 nm in R and
+    0.2% in vertex count over four runs), and whether it is the same
+    bit for bit."""
     d_mean = abs(fit['R_mean'] - ref['R_mean'])
     d_std = abs(fit['R_std'] - ref['R_std'])
     d_v = abs(fit['V'] - ref['V']) / ref['V']
     check(d_mean < 0.2, f'fit vs plain: |dR| = {d_mean} nm')
     check(d_std < 0.1, f'fit vs plain: |d std| = {d_std} nm')
     check(d_v < 0.02, f'fit vs plain: vertex counts differ by {d_v:.3%}')
-    return dict(dR=d_mean, dstd=d_std, dV=d_v)
+    return dict(dR=d_mean, dstd=d_std, dV=d_v,
+                bit_identical=same_bits(fit, ref))
 
 
 def phase_fit99(device='cuda', n_points=N_POINTS, radius=RADIUS,
@@ -866,6 +1044,8 @@ def phase_fit99(device='cuda', n_points=N_POINTS, radius=RADIUS,
                 euler=int(mesh.euler_characteristic),
                 manifold=bool(mesh.is_manifold), components=int(n_comp),
                 method=mesh._last_corr_method,
+                sha_vertices=digest(mesh.vertices),
+                sha_faces=digest(mesh.faces),
                 n_punched=sum(int(rec.extra.get('n_punched', 0))
                               for rec in recs),
                 necks_removed=sum(int(rec.extra.get('necks_removed', 0))
@@ -887,8 +1067,8 @@ def check_fit99(fit, launches, iters=99):
     check(fit['components'] == 1, f"fit99 components {fit['components']}")
     check(launches['K1'] == iters,
           f"fit99: K1 launched {launches['K1']} times, not {iters}")
-    for key, n in launches.items():
-        check(n > 0, f'{key} was not launched during fit99')
+    for key in WINDOWED_PATH:
+        check(launches[key] > 0, f'{key} was not launched during fit99')
 
 
 def torus_cloud(R=40.0, r=10.0, n=8000, seed=0):
@@ -1009,6 +1189,8 @@ def phase_image(device='cuda', n_points=N_POINTS, radius=RADIUS,
                 directions=int(mesh._last_diag.S.shape[-1]),
                 necks_removed=sum(int(rec.extra.get('necks_removed', 0))
                                   for rec in recs),
+                sha_vertices=digest(mesh.vertices),
+                sha_faces=digest(mesh.faces),
                 wall=wall,
                 trace=[(rec.kind, rec.iteration, round(rec.wall_time, 3),
                         rec.n_vertices, rec.extra.get('v_cap', ''))
@@ -1027,8 +1209,9 @@ def check_image(fit, launches, iters=100, voxel=VOXEL):
     for key in ('K1', 'K2'):
         check(launches[key] == iters,
               f'image: {key} launched {launches[key]} times, not {iters}')
-    for key, n in launches.items():
-        check(n > 0, f'{key} was not launched during the image fit')
+    for key in WINDOWED_PATH:
+        check(launches[key] > 0,
+              f'{key} was not launched during the image fit')
 
 
 def phase_sweep(config=None, device='cuda', seed=0):
@@ -1085,6 +1268,13 @@ GRID_ENTRIES = (
     dict(config='test_tetra.yaml', entry='15e069aae9d3',
          sdf_ref=14.793, sdf_tol=0.19),
 )
+# run twice at once beside GRID_ENTRIES: a separator row whose topology
+# changed between card runs while the card's sums had no fixed order
+# (ROADMAP Queue C.13); the two rows must be equal but for the fit's
+# duration.  Its topology is printed and not gated: how the separator
+# cuts this entry is the method's own sensitivity.
+REPEAT_ENTRY = dict(config='test_necks_separator.yaml', entry='375680bfb943',
+                    sdf_ref=None, sdf_tol=None)
 
 
 def grid_entry(spec):
@@ -1148,6 +1338,20 @@ def phase_grids(entries=GRID_ENTRIES, device='cuda', timeout=110.0):
     return out
 
 
+def check_repeat(results):
+    """The REPEAT_ENTRY workers' rows: equal in every field but the
+    fit's ``duration``.  Returns the fields that differ."""
+    rows = [r['row'] for r in results]
+    for r in results:
+        check(r['row'] is not None, f"grids repeat {r['entry']}: no "
+              f"metrics row ({r['status']})")
+    differ = sorted(k for k in set(rows[0]) | set(rows[1])
+                    if k != 'duration' and rows[0].get(k) != rows[1].get(k))
+    check(not differ, f'grids repeat {results[0]["entry"]}: the two '
+          f'workers\' rows differ in {differ}')
+    return differ
+
+
 def check_grids(results):
     for r in results:
         tag = f"grids {r['config']} {r['entry']}"
@@ -1179,13 +1383,17 @@ def phase_shard_block(rf=5):
     the first-iteration face ids equal and the first-iteration positions
     within 5e-3 (tests/test_parallel.py:37-38: only the reduction order
     differs), the same number of iterations done after ``rf``, and the
-    mean radius after ``rf`` within 0.2 nm (the fit phase's bound for
-    atomic-sum order).  The largest position difference after ``rf``
-    is read beside that of a second one-process run: K2's float atomics
-    make two runs differ, and a point whose nearest face flips moves a
-    vertex.  World size 2 runs the face-side normal equations, so W2
-    is all-reduced too."""
+    mean radius after ``rf`` within 0.2 nm.  The largest position
+    difference after ``rf`` is read beside that of a second one-process
+    run, which must be zero: every sum of the block has one order.  At
+    world size 1 the all-reduce is the identity, but the rank sums over
+    its slice padded to whole 256-point blocks (1,000,192 rows), so the
+    point-axis reductions group their terms otherwise; against the
+    one-process block on that same padded cloud the positions must be
+    equal bit for bit.  World size 2 runs the face-side normal
+    equations, so W2 is all-reduced too."""
     from ch_shrinkwrap_torch.parallel.sharding import (make_device_mesh,
+                                                       shard_points,
                                                        sharded_cg_block)
     from ch_shrinkwrap_torch.solver.shrinkwrap import cg_block
     b = bench_inputs()
@@ -1238,6 +1446,23 @@ def phase_shard_block(rf=5):
               f'process {int(d_one.n_done)}')
         check(d_r < 0.2, f'shard {key}: |dR| = {d_r} nm after {rf} '
               f'iterations')
+        check(bits_differ(f_one2, f_one) == 0, f'shard {key}: two '
+              f'one-process blocks differ')
+        if mesh.world_size == 1:
+            p, s, w, m = shard_points(mesh, 0, b.pts, b.sigma_inv,
+                                      b.weights)
+            f_pad, _ = cg_block(ma.positions, ma.faces, ma.f_mask,
+                                ma.v_mask, ma.nbr_v, p, s, w, m, 2.0,
+                                num_iters=rf, corr_method='windowed',
+                                face_nbrs=ma.face_nbrs, tables=b.tables,
+                                face_hcgc=hcgc)
+            n_bits = bits_differ(f_s, f_pad)
+            out[key].update(padded_rows=int(p.shape[0]),
+                            padded_max_abs_dpos=float(
+                                (f_s - f_pad).abs().max()),
+                            padded_bits_differ=n_bits)
+            check(n_bits == 0, f'shard {key}: {n_bits} positions differ '
+                  f'from the one-process block on the padded cloud')
     return out
 
 
@@ -1256,8 +1481,9 @@ def check_shard_fit(fit, one, launches, iters=20):
         check(launches[key] == iters,
               f'shard: {key} launched {launches[key]} times on rank 0, '
               f'not {iters}')
-    for key, n in launches.items():
-        check(n > 0, f'{key} was not launched on rank 0 of the shard fit')
+    for key in WINDOWED_PATH:
+        check(launches[key] > 0,
+              f'{key} was not launched on rank 0 of the shard fit')
     return d_r
 
 
@@ -1446,19 +1672,35 @@ def main():
         phase_line('fit', time.time() - t0, launches=launches, **fit)
         for rec in trace:
             print('  trace:', *rec, flush=True)
-        for key, n in launches.items():
-            check(n > 0, f'{key} was not launched during the fit')
+        for key in WINDOWED_PATH:
+            check(launches[key] > 0,
+                  f'{key} was not launched during the fit')
         # 20 iterations from the offset-25 seed stop short of the cloud
         # (the JAX package too, PERF.md section 6): the radius bound is
         # one localization sigma; the 39-iteration fit below is held to
         # 1.5 nm
         check_fit(fit, mean_tol=SIGMA)
+        # the same fit again: every sum on the card has one order, so the
+        # final mesh is the same bit for bit
+        t0 = time.time()
+        again = phase_fit()
+        again.pop('trace')
+        phase_line('fit.again', time.time() - t0,
+                   bit_identical=same_bits(fit, again),
+                   **{k: again[k] for k in ('fit_s', 'V', 'R_mean',
+                                            'sha_vertices', 'sha_faces')})
+        check(same_bits(fit, again), 'fit: two runs of the same fit give '
+              'different meshes')
         t0 = time.time()
         with plain_versions():
             ref = phase_fit()
         ref.pop('trace')
         same = check_same_fit(fit, ref)
         phase_line('fit.plain', time.time() - t0, **same, **ref)
+        # every kernel adds in its plain version's order: the same mesh
+        # bit for bit
+        check(same['bit_identical'], 'fit vs plain: the meshes differ in '
+              'bits')
         t0 = time.time()
         conv = phase_fit(iters=39)
         conv.pop('trace')
@@ -1507,6 +1749,14 @@ def main():
         phase_line('fit99', time.time() - t0, launches=launches99, **fit99)
         phase_line('fit99.wall', 0.0, **wall)
         check_fit99(fit99, launches99)
+        t0 = time.time()
+        again = phase_fit99()
+        phase_line('fit99.again', time.time() - t0,
+                   bit_identical=same_bits(fit99, again),
+                   **{k: again[k] for k in ('fit_s', 'V', 'R_mean',
+                                            'sha_vertices', 'sha_faces')})
+        check(same_bits(fit99, again), 'fit99: two runs of the north star '
+              'give different meshes')
     with Watchdog('punch', DEADLINES['punch']):
         t0 = time.time()
         card = phase_punch()
@@ -1537,6 +1787,7 @@ def main():
         phase_line('image.plain', time.time() - t0, dR=d_r,
                    R_kernels=short['R_mean'], R_plain=short_ref['R_mean'],
                    V_kernels=short['V'], V_plain=short_ref['V'],
+                   bit_identical=same_bits(short, short_ref),
                    fit_s_kernels=short['fit_s'],
                    fit_s_plain=short_ref['fit_s'])
         check(d_r < 0.2, f'image at 10 iterations vs plain: |dR| = {d_r}')
@@ -1556,12 +1807,16 @@ def main():
                            'manifold', 'topology_correct', 'mse_rms',
                            'sdf_hausdorff', 'berger_hausdorff')})
         check_sweep(sw)
+        check(launches_sw['segsum'] > 0,
+              'segsum was not launched during the sweep')
     with Watchdog('grids', DEADLINES['grids']):
         t0 = time.time()
-        grids = phase_grids()
-        for r in grids:
+        grids = phase_grids(GRID_ENTRIES + (REPEAT_ENTRY, REPEAT_ENTRY))
+        for i, r in enumerate(grids):
             row = r['row'] or {}
             name = r['config'][:-5] + ('.recipe' if r['via_recipe'] else '')
+            if i >= len(GRID_ENTRIES):
+                name += f'.repeat{i - len(GRID_ENTRIES)}'
             phase_line(f'grids.{name}', r['wall_s'] or 0.0,
                        entry=r['entry'], status=r['status'],
                        launches=r['launches'], sdf_ref=r['sdf_ref'],
@@ -1571,22 +1826,31 @@ def main():
                                'euler', 'components', 'manifold',
                                'topology_correct')})
         phase_line('grids', time.time() - t0)
-        check_grids(grids)
+        check_grids(grids[:len(GRID_ENTRIES)])
+        check_repeat(grids[len(GRID_ENTRIES):])
 
     print(f'total {time.time() - t_all:.1f}s', flush=True)
     table = []
-    for key in ('K1', 'K2', 'K3', 'K3f'):
+    for key in ('K1', 'K2', 'segsum', 'K3', 'K3f'):
         rec = dict(recs[key])
         rec.pop('checks')
-        # launches: the north-star fit's (fit99); launches_fit20: the
-        # 20-iteration fit's; launches_image: the image recipe's
-        rec['launches'] = launches99[key]
+        # launches: the count of the kernel's path (launches_path): the
+        # north-star fit's (fit99), or for segment_sum_ordered, which
+        # has no work there (WINDOWED_PATH), the sweep's;
+        # launches_fit20, launches_image, launches_sweep: the 20-iteration
+        # fit's, the image recipe's and the sweep's
+        path = 'fit99' if key in WINDOWED_PATH else 'sweep'
+        rec['launches'] = (launches99 if path == 'fit99'
+                           else launches_sw)[key]
+        rec['launches_path'] = path
         rec['launches_fit20'] = launches[key]
         rec['launches_image'] = launches_img[key]
+        rec['launches_sweep'] = launches_sw[key]
         table.append({k: rec[k] for k in (
             'name', 'route', 'source', 'replaces', 'launches',
-            'launches_fit20', 'launches_image', 'max_abs_err', 'ms',
-            'call_ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms')})
+            'launches_path', 'launches_fit20', 'launches_image',
+            'launches_sweep', 'max_abs_err', 'ms', 'call_ms', 'plain_ms',
+            'bound_ms', 'bound_by', 'library_ms')})
     print(env['nvidia_smi'], flush=True)
     print(json.dumps({'kernels': table}), flush=True)
     print(json.dumps({'ok': True, 'device': {

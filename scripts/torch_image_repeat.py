@@ -8,9 +8,11 @@ boundary step that breaks the surface.
         --min-edge 8 --voxel 4          # a tiny CPU run
 
 The image recipe fit (ImageShrinkwrapMembrane with the shrink prior on
-a 5 nm histogram of the 1e6-point sphere cloud) differs from run to run
-on the card in the order of its atomic sums, so a fault of the topology
-surgery may show in some runs only.  Each call of ``remove_necks``,
+a 5 nm histogram of the 1e6-point sphere cloud) differed from run to
+run on the card while its sums were atomic, so a fault of the topology
+surgery showed in some runs only; every sum now has one order and the
+runs repeat bit for bit, so repeats read the machine, and other inputs
+(``--n-points``, ``--radius``, ``--voxel``) reach other surgery.  Each call of ``remove_necks``,
 ``remove_extra_short_edges`` and ``remesh`` during the fits is checked:
 a step that turns a manifold surface non-manifold, or raises the
 component count, prints a ``BREAK`` line (and, with ``--snapshots``,

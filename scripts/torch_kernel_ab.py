@@ -40,8 +40,10 @@ def _smoke():
 def path_device_times(inp, timer):
     """Device time of each kernel wrapper call of one CG iteration on
     the path's inputs, through the calls every version of the port
-    has: K1, K2 in 'ah' mode, the tri / ncc / S gathers, and the whole
-    faces -> vertices fold (``_fold`` with the gather tables)."""
+    has: K1, K2 in 'ah' mode (all the call's device work: its kernels,
+    and the zero fill or the ordering each version needs), the tri /
+    ncc / S gathers, and the whole faces -> vertices fold (``_fold``
+    with the gather tables)."""
     from ch_shrinkwrap_torch.ops import cuda_gather, cuda_scatter
     from ch_shrinkwrap_torch.ops import cuda_window
     from ch_shrinkwrap_torch.solver.shrinkwrap import _fold
@@ -49,8 +51,7 @@ def path_device_times(inp, timer):
                        match='window_min', reps=10),
            'K2': timer(lambda: cuda_scatter.windowed_scatter(
                'ah', inp.w, inp.res, None, inp.fid, inp.js,
-               inp.meta_starts, inp.sub_ids, inp.Fp),
-               match='windowed_scatter')}
+               inp.meta_starts, inp.sub_ids, inp.Fp))}
     for key, (src, idx) in inp.gathers.items():
         out['K3.' + key] = timer(lambda: cuda_gather.row_gather(src, idx),
                                  match='row_gather')

@@ -154,9 +154,24 @@ def test_windowed_scatter_kernel_matches_plain(problem, mode):
     out = cuda_scatter.windowed_scatter(*args)
     torch.cuda.synchronize()
     assert cuda_scatter.windowed_scatter.launches == n0 + 1
-    ref = cuda_scatter.windowed_scatter_plain(*args)
-    tol = 1e-4 * float(ref.abs().max())
-    torch.testing.assert_close(out, ref, rtol=0, atol=tol)
+    # each face's rows in ascending row index, as the plain version adds
+    # them: equal bit for bit, on the card and on a CPU copy
+    ref = cuda_scatter.windowed_scatter_plain(*_cpu(args))
+    assert same_bits(out, ref)
+    assert same_bits(out, cuda_scatter.windowed_scatter_plain(*args))
+    # and the same bits on every launch
+    assert same_bits(out, cuda_scatter.windowed_scatter(*args))
+
+
+def _cpu(args):
+    return tuple(a.cpu() if torch.is_tensor(a) else a for a in args)
+
+
+def same_bits(a, b):
+    a, b = a.detach().cpu().contiguous(), b.detach().cpu().contiguous()
+    as_int = torch.int64 if a.element_size() == 8 else torch.int32
+    return a.shape == b.shape and torch.equal(a.view(as_int),
+                                              b.view(as_int))
 
 
 def _scatter_case(dev, N, targets, C_given=12, seed=0):
@@ -178,9 +193,10 @@ def _scatter_case(dev, N, targets, C_given=12, seed=0):
                                   'unaligned'])
 @pytest.mark.parametrize('mode', ['ah', 'ahw2', 'w2', 'given'])
 def test_windowed_scatter_preaggregation(dev, mode, case):
-    """Whole warps on one face, runs of equal faces, faces that repeat
-    out of order within a warp (the warp pre-aggregation's cases), and
-    a row count that is no multiple of the warp or the block."""
+    """65,536 rows on one face (one long serial segment), runs of equal
+    faces, faces that repeat out of order within a warp, and a row count
+    that is no multiple of the warp or the block: bit-equal to the plain
+    version on a CPU copy."""
     from ch_shrinkwrap_torch.ops import cuda_scatter
     N = 100_003 if case == 'unaligned' else 65_536
     n = torch.arange(N, device=dev)
@@ -206,8 +222,51 @@ def test_windowed_scatter_preaggregation(dev, mode, case):
     assert bool((tgt == fid.long()).all())
     C = ref.shape[1]
     assert out.shape == ref.shape and out.stride(0) == -(-C // 4) * 4
-    tol = 1e-4 * float(ref.abs().max())
-    torch.testing.assert_close(out, ref, rtol=0, atol=tol)
+    assert same_bits(out, ref)
+    assert same_bits(out, cuda_scatter.windowed_scatter_plain(*_cpu(args)))
+
+
+@pytest.mark.parametrize('case', ['one_face', 'runs', 'interleaved'])
+@pytest.mark.parametrize('C', [1, 3, 7, 12])
+def test_segment_sum_ordered_matches_plain(dev, case, C):
+    """The ordered segment sum on K2's adversarial targets (65,536 rows
+    on one segment, runs, targets that repeat out of order), with rows
+    dropped by a negative target or one past the table: bit-equal to
+    its plain version on a CPU copy, with and without ``init``, and the
+    same on a second launch."""
+    from ch_shrinkwrap_torch.ops import cuda_scatter
+    N = 65_536
+    n = torch.arange(N, device=dev)
+    targets = {'one_face': torch.full_like(n, 17),
+               'runs': n // 7,
+               'interleaved': (n * 5) % 3 + 32 * (n // 32)}[case]
+    S = 2048 if case == 'one_face' else int(targets.max()) + 1
+    g = torch.Generator(device=dev).manual_seed(C)
+    targets = torch.where(torch.rand(N, generator=g, device=dev) < 0.01,
+                          -1, targets)
+    targets[:5] = S
+    scale = 10.0 ** (torch.rand((N, 1), generator=g, device=dev) * 14 - 6)
+    rows = torch.randn((N, C), generator=g, device=dev) * scale
+    if C == 1:
+        rows = rows[:, 0]
+    init = torch.randn((S,) + tuple(rows.shape[1:]), generator=g,
+                       device=dev)
+    for ini in (None, init):
+        n0 = cuda_scatter.segment_sum_ordered.launches
+        out = cuda_scatter.segment_sum_ordered(rows, targets, S, init=ini)
+        torch.cuda.synchronize()
+        assert cuda_scatter.segment_sum_ordered.launches == n0 + 1
+        ref = cuda_scatter.segment_sum_ordered_plain(
+            rows.cpu(), targets.cpu(), S,
+            init=None if ini is None else ini.cpu())
+        assert same_bits(out, ref)
+        assert same_bits(out, cuda_scatter.segment_sum_ordered(
+            rows, targets, S, init=ini))
+    step = cuda_scatter.segment_sum_stepwise(rows, targets, S)
+    assert same_bits(step, cuda_scatter.segment_sum_ordered(rows, targets,
+                                                            S))
+    with pytest.raises(TypeError):
+        cuda_scatter.segment_sum_ordered(rows.double(), targets, S)
 
 
 @pytest.mark.parametrize('C', [1, 3, 7, 9, 16])
@@ -229,9 +288,8 @@ def test_row_gather_kernel_is_exact(dev, C):
 def test_row_group_sum_kernel_exact_order(dev, K, C):
     """The fused group sum adds a row's K source rows in the order
     k = 0..K-1: equal, bit for bit, to that sequential f32 sum (masked
-    slots and indices outside [0, V) add nothing), and exactly equal to
-    the plain version on integer-valued rows, whose sums are exact in
-    any order."""
+    slots and indices outside [0, V) add nothing) and to the plain
+    version, which adds in that order too."""
     from ch_shrinkwrap_torch.ops import cuda_gather
     g = torch.Generator(device=dev).manual_seed(K * 100 + C)
     V, R = 40_000, 100_003
@@ -248,6 +306,9 @@ def test_row_group_sum_kernel_exact_order(dev, K, C):
     for k in range(K):
         seq = torch.where(care[:, k, None], seq + rows[:, k], seq)
     assert torch.equal(out, seq)
+    assert same_bits(out, cuda_gather.row_group_sum_plain(src, idx, care))
+    assert same_bits(out, cuda_gather.row_group_sum_plain(
+        src.cpu(), idx.cpu(), care.cpu()))
     ints = torch.randint(-50, 50, (V, C), generator=g, device=dev).float()
     assert torch.equal(cuda_gather.row_group_sum(ints, idx, care),
                        cuda_gather.row_group_sum_plain(ints, idx, care))

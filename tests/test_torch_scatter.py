@@ -120,7 +120,7 @@ def test_windowed_scatter_plain_matches_pallas_interpret(routing, jax_refs,
     out = _port(mode, routing, routing['fid'], strides)
     assert out.shape == ref.shape
     # the output table's rows are padded to a multiple of 4 columns (the
-    # kernel adds them with 16-byte atomics); callers get column views
+    # kernel writes them with 16-byte stores); callers get column views
     C4 = {'ah': 12, 'ahw2': 20, 'w2': 8, 'given': 12}[mode]
     assert strides == [(C4, 1)] * (2 if mode == 'ahw2' else 1)
     np.testing.assert_allclose(out.numpy(), ref, rtol=0,
