@@ -126,25 +126,35 @@ def _declare(L):
     L.csw_window_min.restype = i32
     L.csw_window_schedule.argtypes = [vp, vp, vp]  # tile, group_span, chunk
     L.csw_window_schedule.restype = None
-    L.csw_windowed_route.argtypes = [
+    plan = ctypes.POINTER(ctypes.c_int)
+    i64 = ctypes.c_longlong
+    L.csw_windowed_scatter.argtypes = [
         vp, vp, vp, vp,                     # fid, js, starts, sub_ids
         i32, i32, i32, i32, i32, i32,       # N, B, A, W, smax, nsub
         i32, i32,                           # num_segments, discard_sub
-        vp,                                 # key
-        vp]                                 # stream
-    L.csw_windowed_route.restype = i32
-    L.csw_windowed_reduce.argtypes = [
-        vp, vp, vp, vp, vp,                 # w, res, vals, perm, offsets
-        i32, i32, i32, i32,                 # num_segments, mode, C, Cp
+        vp, vp, vp,                         # w, res, vals
+        i32, i32, i32,                      # mode, C, Cp
+        plan, i32,                          # digit plan, passes
+        vp, i64,                            # workspace, its ints
         vp,                                 # out
         vp]                                 # stream
-    L.csw_windowed_reduce.restype = i32
+    L.csw_windowed_scatter.restype = i32
     L.csw_segment_sum.argtypes = [
-        vp, vp, vp, vp,                     # rows, perm, offsets, init
-        i32, i32,                           # num_segments, C
+        vp, vp, i32,                        # rows, target, target int64
+        i32, i32, i32,                      # N, num_segments, C
+        vp,                                 # init
+        plan, i32,                          # digit plan, passes
+        vp, i64,                            # workspace, its ints
         vp,                                 # out
         vp]                                 # stream
     L.csw_segment_sum.restype = i32
+    L.csw_segment_order.argtypes = [
+        vp, i32,                            # target, target int64
+        i32, i32,                           # N, num_segments
+        plan, i32,                          # digit plan, passes
+        vp, i64,                            # workspace, its ints
+        vp]                                 # stream
+    L.csw_segment_order.restype = i32
     L.csw_row_gather.argtypes = [
         vp, i32, i32, vp, i32, vp,          # src, V, C, idx, R, out
         vp]                                 # stream

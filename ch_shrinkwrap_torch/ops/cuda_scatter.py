@@ -13,8 +13,8 @@ given columns).  On a CUDA tensor ``windowed_scatter`` launches
 ``csrc/scatter.cu``; on a CPU tensor it runs ``windowed_scatter_plain``
 (the same routing, then the plain ordered sum).
 
-``segment_sum_ordered(rows, target, num_segments)`` is the reduction
-stage on its own, for given rows of any width: every accumulation of
+``segment_sum_ordered(rows, target, num_segments)`` (K2s) is the
+reduction on its own, for given rows of any width: every accumulation of
 the fit on the card goes through it instead of ``index_add_``, whose
 CUDA version adds with atomics in an order that changes between runs.
 
@@ -23,9 +23,11 @@ from ``init``), of its rows in ascending row index, rounded after every
 add.  That is the order of ``index_add_`` on the CPU, so the kernels
 equal their plain versions bit for bit and a fit on the card gives the
 same bits on every run.  On the card the rows are ordered by target
-with a stable sort (which moves indices and adds nothing) and one
-thread walks each segment; the plain version on the card adds the k-th
-row of every segment in step k, so no index repeats within one
+with the kernels' own stable radix ordering of ``bit_length(num_segments)``
+key bits (``digit_plan`` chooses its digits; ``segment_order`` is its
+plain version), and each segment is folded in that order, by one lane
+or, when it is long, by a warp; the plain version on the card adds the
+k-th row of every segment in step k, so no index repeats within one
 ``index_add_`` and nothing races.
 
 K2 returns the first C columns of a (num_segments, C4) table whose row
@@ -37,6 +39,8 @@ and clamps them itself) and ``sub_ids`` as int32.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from . import _build
@@ -46,6 +50,12 @@ MODES = {'given': 0, 'ah': 1, 'ahw2': 2, 'w2': 3}
 MODE_COLS = {'ah': 12, 'ahw2': 18, 'w2': 6}
 MAX_GIVEN_COLS = 12
 INT32_MAX = 2 ** 31 - 1
+
+# the radix ordering's shape, as csrc/scatter.cu builds it
+RADIX_BITS_MAX = 10      # bits a pass sorts
+RADIX_WARPS = 8          # warps of a tile, each with its own histogram
+RADIX_TILE = 4096        # rows a block ranks in a pass
+SMEM_STATIC_MAX = 48 * 1024
 
 
 def _columns(mode, w, res, vals):
@@ -82,14 +92,89 @@ def route(fid, js, starts_al, sub_ids, window, block_size, discard_sub):
 
 
 def segment_order(key, num_segments):
-    """The rows in ascending order of ``key`` (int32, ``num_segments`` =
-    dropped), rows of one key in ascending row index, and each
-    segment's first position in that order: (perm int64 (N,), offsets
-    int32 (num_segments + 1,)).  Moves indices only."""
+    """Plain version of the card's ordering: the rows in ascending order
+    of ``key`` (int32, ``num_segments`` = dropped), rows of one key in
+    ascending row index, and each segment's first position in that
+    order: (perm int64 (N,), offsets int32 (num_segments + 1,)).  Moves
+    indices only.  The kernels do not call it."""
     skey, perm = torch.sort(key, stable=True)
     bounds = torch.arange(num_segments + 1, dtype=key.dtype,
                           device=key.device)
     return perm, torch.searchsorted(skey, bounds, out_int32=True)
+
+
+def digit_plan(num_segments):
+    """The digits ``[(shift, bits), ...]`` of the card's stable LSD radix
+    ordering of keys in ``[0, num_segments]`` (``num_segments`` marks a
+    dropped row): ``bit_length(num_segments)`` bits in the fewest passes
+    of at most ``RADIX_BITS_MAX`` bits, split as evenly as they go."""
+    nbits = max(int(num_segments).bit_length(), 1)
+    npass = -(-nbits // RADIX_BITS_MAX)
+    base, extra = divmod(nbits, npass)
+    plan, shift = [], 0
+    for p in range(npass):
+        bits = base + (p < extra)
+        plan.append((shift, bits))
+        shift += bits
+    return plan
+
+
+def radix_smem_bytes(bits):
+    """Shared memory of a pass's scatter kernel (the larger of its two
+    kernels): a histogram of ``2**bits`` counts for each warp of the
+    tile, which then holds the tile's keys and values in digit order,
+    each digit's offset, and the two scans' warp sums (4 digits a
+    thread)."""
+    R = 1 << bits
+    return ((max(RADIX_WARPS * R, 2 * RADIX_TILE) + R) * 4
+            + 2 * 4 * RADIX_WARPS * 4)
+
+
+def _order_args(N, num_segments, device):
+    """(plan as a C int array, passes, int32 workspace) of one ordering:
+    4 N keys and indices, the offsets, the digit totals and the tile x
+    digit counts of the widest pass."""
+    if N > INT32_MAX - RADIX_TILE:
+        raise ValueError(f'{N} rows: the ordering takes fewer than '
+                         f'2**31 - {RADIX_TILE}')
+    plan = digit_plan(num_segments)
+    flat = [v for sb in plan for v in sb]
+    R = 1 << max(b for _, b in plan)
+    T = -(-N // RADIX_TILE)
+    ws = torch.empty(4 * N + num_segments + 1 + R + T * R,
+                     dtype=torch.int32, device=device)
+    return (ctypes.c_int * len(flat))(*flat), len(plan), ws
+
+
+def _target_dtype(target):
+    if target.dtype not in (torch.int32, torch.int64):
+        raise TypeError(f'target must be int32 or int64, got '
+                        f'{target.dtype}')
+    return int(target.dtype == torch.int64)
+
+
+def radix_order(target, num_segments):
+    """The ordering K2 and K2s run on the card, alone: (perm int32 (N,),
+    offsets int32 (num_segments + 1,)) of ``segment_order`` on the keys
+    ``target``, or ``num_segments`` where it lies outside
+    ``[0, num_segments)``.  On a CPU tensor, ``segment_order`` itself."""
+    if num_segments < 1 or num_segments >= INT32_MAX:
+        raise ValueError('num_segments must lie in [1, 2**31 - 1)')
+    if target.device.type == 'cpu':
+        t = target.long()
+        key = torch.where((t >= 0) & (t < num_segments), t,
+                          num_segments).int()
+        perm, offsets = segment_order(key, num_segments)
+        return perm.int(), offsets
+    is64 = _target_dtype(target)
+    _build.require_cuda(target)
+    N = target.shape[0]
+    plan, npass, ws = _order_args(N, num_segments, target.device)
+    err = _build.lib().csw_segment_order(
+        target.data_ptr(), is64, N, num_segments, plan, npass,
+        ws.data_ptr(), ws.numel(), _build.stream_ptr(ws))
+    _build.check(err, 'segment_order')
+    return ws[N:2 * N], ws[4 * N:4 * N + num_segments + 1]
 
 
 def _check(mode, w, res, vals, fid, js, starts, num_segments, block_size,
@@ -146,25 +231,21 @@ def windowed_scatter(mode, w, res, vals, fid, js, starts, sub_ids,
     dev = lead.device
     C4 = -(-C // 4) * 4
     out = torch.empty((num_segments, C4), dtype=torch.float32, device=dev)
+    if num_segments == 0:
+        return out[:, :C]
 
     def ptr(t):
         return None if t is None else t.data_ptr()
 
     Fp_al = -(-num_segments // 128) * 128
-    L = _build.lib()
-    stream = _build.stream_ptr(out)
-    key = torch.empty(N, dtype=torch.int32, device=dev)
-    err = L.csw_windowed_route(
+    plan, npass, ws = _order_args(N, num_segments, dev)
+    err = _build.lib().csw_windowed_scatter(
         fid.data_ptr(), js.data_ptr(), starts.data_ptr(), sub_ids.data_ptr(),
         N, block_size, starts.shape[1], W, max(Fp_al - W, 0),
         sub_ids.numel(), num_segments, int(bool(discard_sub)),
-        key.data_ptr(), stream)
-    _build.check(err, 'windowed_route')
-    perm, offsets = segment_order(key, num_segments)
-    err = L.csw_windowed_reduce(
-        ptr(w), ptr(res), ptr(vals), perm.data_ptr(), offsets.data_ptr(),
-        num_segments, MODES[mode], C, C4, out.data_ptr(), stream)
-    _build.check(err, 'windowed_reduce')
+        ptr(w), ptr(res), ptr(vals), MODES[mode], C, C4, plan, npass,
+        ws.data_ptr(), ws.numel(), out.data_ptr(), _build.stream_ptr(out))
+    _build.check(err, 'windowed_scatter')
     windowed_scatter.launches += 1
     return out[:, :C]
 
@@ -218,18 +299,20 @@ def segment_sum_ordered(rows, target, num_segments, init=None):
         return segment_sum_ordered_plain(rows, target, num_segments, init)
     if rows.dtype != torch.float32:
         raise TypeError(f'rows must be float32, got {rows.dtype}')
-    rows_c = rows.contiguous()
+    is64 = _target_dtype(target)
+    rows_c, target_c = rows.contiguous(), target.contiguous()
     init_c = None if init is None else init.contiguous()
-    t = target.long()
-    key = torch.where((t >= 0) & (t < num_segments), t,
-                      num_segments).int()
-    _build.require_cuda(rows_c, key, *(() if init_c is None else (init_c,)))
-    perm, offsets = segment_order(key, num_segments)
+    _build.require_cuda(rows_c, target_c,
+                        *(() if init_c is None else (init_c,)))
     out = torch.empty(shape, dtype=rows.dtype, device=rows.device)
+    if num_segments == 0:
+        return out
+    N = rows.shape[0]
+    plan, npass, ws = _order_args(N, num_segments, rows.device)
     err = _build.lib().csw_segment_sum(
-        rows_c.data_ptr(), perm.data_ptr(), offsets.data_ptr(),
-        None if init_c is None else init_c.data_ptr(), num_segments, C,
-        out.data_ptr(), _build.stream_ptr(out))
+        rows_c.data_ptr(), target_c.data_ptr(), is64, N, num_segments, C,
+        None if init_c is None else init_c.data_ptr(), plan, npass,
+        ws.data_ptr(), ws.numel(), out.data_ptr(), _build.stream_ptr(out))
     _build.check(err, 'segment_sum')
     segment_sum_ordered.launches += 1
     return out

@@ -9,9 +9,14 @@ sum) with nvcc and the native host engine (native/topology.cpp, the
 remesh and surgery of every fit) with g++, failing when either cannot be
 built or loaded; holds each kernel against its plain PyTorch version at
 the shapes of the fit's path (bit for bit: every kernel sums in its plain
-version's order), and reads each kernel's device time (torch.profiler
-kernel events) beside its bound, its plain version's and a library
-call's, on the path's own inputs.  It then times the bench
+version's order), K2's and K2s's radix ordering against its plain
+version (segment_order: perm and offsets equal), and reads each
+kernel's device time (torch.profiler kernel events) beside its bound,
+its plain version's and a library call's, on the path's own inputs;
+for K2 and K2s also the time of each stage (histogram, scan, scatter,
+offsets, reduce) with the case's longest segment, the reduce against
+the longest segment up to every row on one face, and K2s with every
+row on one vertex.  It then times the bench
 configuration's CG block, and drives the 20-iteration no-surgery
 MembraneMesh.shrink_wrap fit of a 1e6-localization sphere cloud (R = 500
 nm, sigma = 5 nm) from its marching-cubes seed twice, counting the
@@ -96,8 +101,8 @@ import numpy as np
 # per-phase deadlines in seconds, each about twice the phase's slowest
 # run on an H100 or more; they add up to 1150, so the whole run ends
 # inside 1200 s (the expected total is about 6 minutes)
-DEADLINES = {'env': 15, 'build': 40, 'kernels': 100, 'cg_block': 20,
-             'fit': 110, 'shard': 110, 'corr': 235, 'fit99': 60,
+DEADLINES = {'env': 15, 'build': 40, 'kernels': 130, 'cg_block': 20,
+             'fit': 110, 'shard': 110, 'corr': 205, 'fit99': 60,
              'punch': 40, 'image': 100, 'sweep': 180, 'grids': 140}
 
 # H100 SXM peaks (NVIDIA data sheet) for the bound column
@@ -180,19 +185,12 @@ def time_ms(fn, reps=10, warmup=2):
     return t0.elapsed_time(t1) / reps
 
 
-def device_ms(fn, match=None, reps=20, warmup=3):
-    """Device time of ``fn`` from the device events torch.profiler
-    records over ``reps`` calls.  With ``match``, the mean duration of
-    a launch of the kernels whose name contains it (a kernel's own
-    time; the profiler now and then drops an event, so this averages
-    over the launches it saw); without, the summed duration of every
-    kernel, copy and fill the calls made, per call (a library call's
-    or a plain version's time).  Returns dict(ms, call_ms = CUDA-event
-    wall per call, launches = matched device events per call)."""
+def device_events(fn, reps, match=None):
+    """The device events torch.profiler records over ``reps`` calls of
+    ``fn`` (with ``match``, those whose name contains it)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    call_ms = time_ms(fn, reps=reps, warmup=warmup)
     # the profiler now and then records no device event at all for a
     # window; such a window is read again, up to three times
     for _ in range(3):
@@ -204,12 +202,69 @@ def device_ms(fn, match=None, reps=20, warmup=3):
         evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA
                and (match is None or match in e.name)]
         if evs:
-            break
-    check(len(evs) > 0, f'profiler saw no device event'
+            return evs
+    check(False, f'profiler saw no device event'
           f'{" named " + match if match else ""}')
+
+
+def device_ms(fn, match=None, reps=20, warmup=3):
+    """Device time of ``fn`` from the device events torch.profiler
+    records over ``reps`` calls.  With ``match``, the mean duration of
+    a launch of the kernels whose name contains it (a kernel's own
+    time; the profiler now and then drops an event, so this averages
+    over the launches it saw); without, the summed duration of every
+    kernel, copy and fill the calls made, per call (a library call's
+    or a plain version's time).  Returns dict(ms, call_ms = CUDA-event
+    wall per call, launches = matched device events per call)."""
+    call_ms = time_ms(fn, reps=reps, warmup=warmup)
+    evs = device_events(fn, reps, match)
     us = sum(e.time_range.end - e.time_range.start for e in evs)
     return dict(ms=us / 1e3 / (len(evs) if match else reps),
                 call_ms=call_ms, launches=len(evs) / reps)
+
+
+# the device stages of K2 and K2s (the kernels of csrc/scatter.cu): the
+# first pass's histogram (K2: fused with the route; K2s: of the clamped
+# targets), the later passes' histograms, the per-digit scans, the
+# stable scatters, the segment starts and the reduce
+K2_STAGES = ('route_hist', 'radix_hist', 'radix_scan', 'radix_scatter',
+             'segment_offsets', 'windowed_reduce')
+K2S_STAGES = ('key_hist', 'radix_hist', 'radix_scan', 'radix_scatter',
+              'segment_offsets', 'segment_reduce')
+
+
+def device_stages(fn, names, reps=20, warmup=3):
+    """Device time per call of each group of kernels of ``fn`` whose
+    name contains one of ``names`` (summed over the group's launches in
+    a call), from one profiler window of ``reps`` calls; 'all' is every
+    device event of the call and 'events' their number a call."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    evs = device_events(fn, reps)
+    out = {name: sum(e.time_range.end - e.time_range.start for e in evs
+                     if name in e.name) / 1e3 / reps for name in names}
+    out['all'] = sum(e.time_range.end - e.time_range.start
+                     for e in evs) / 1e3 / reps
+    out['events'] = len(evs) / reps
+    return out
+
+
+def check_order(tgt, num_segments, what):
+    """The kernels' radix ordering of the targets against its plain
+    version, ``segment_order``: perm and offsets equal exactly."""
+    import torch
+    from ch_shrinkwrap_torch.ops import cuda_scatter
+    t = tgt.long()
+    key = torch.where((t >= 0) & (t < num_segments), t, num_segments).int()
+    perm, offsets = cuda_scatter.segment_order(key, num_segments)
+    p2, o2 = cuda_scatter.radix_order(tgt, num_segments)
+    n_p = int((p2.long() != perm).sum())
+    n_o = int((o2 != offsets).sum())
+    check(n_p == 0 and n_o == 0, f'{what}: the radix ordering differs from '
+          f'segment_order ({n_p} of perm, {n_o} of offsets)')
+    return dict(perm_differ=n_p, offsets_differ=n_o)
 
 
 def bound_ms(n_bytes, n_flops):
@@ -592,8 +647,9 @@ def phase_kernels(device='cuda', n_points=N_POINTS, mesh_fn=_kernel_mesh,
     # ---- K2: the path's rows, and rows outside every window ----------
     # each mode against its plain version on a CPU copy of the same
     # inputs: equal bit for bit (both add each face's rows in ascending
-    # row index); the library call is index_add_ of the mode's rows,
-    # under torch's deterministic mode and, beside it, racing
+    # row index); the ordering against segment_order; the library call
+    # is index_add_ of the mode's rows, under torch's deterministic mode
+    # and, beside it, racing
     vals = torch.randn((N, 12), generator=inp.g, device=dev)
     fid_adv = adversarial_rows(inp)
     k2_bits, k2 = {}, {}
@@ -605,6 +661,7 @@ def phase_kernels(device='cuda', n_points=N_POINTS, mesh_fn=_kernel_mesh,
             check(n_out == 0, f'K2: {n_out} path rows leave their face')
         else:
             check(n_out > 0, 'K2: no adversarial row outside every window')
+        order = check_order(tgt, Fp, f'K2 {rows_name} rows')
         keep = (tgt >= 0) & (tgt < Fp)
         longest = int(torch.bincount(tgt[keep], minlength=Fp).max())
         for mode in ('ah', 'ahw2', 'w2', 'given'):
@@ -627,13 +684,15 @@ def phase_kernels(device='cuda', n_points=N_POINTS, mesh_fn=_kernel_mesh,
         rows_k, tgt_k = rows[keep].contiguous(), tgt[keep].contiguous()
         lib_out = torch.zeros((Fp, 12), device=dev)
         t2 = timer(lambda: cuda_scatter.windowed_scatter(*ah))
+        stages = device_stages(lambda: cuda_scatter.windowed_scatter(*ah),
+                               K2_STAGES)
+        print(f'  K2 {rows_name} rows (longest segment {longest}): '
+              + json.dumps({k: round(v, 5) for k, v in stages.items()}),
+              flush=True)
         k2[rows_name] = dict(
             ms=t2['ms'], call_ms=t2['call_ms'], rows_outside=n_out,
-            longest_segment=longest,
-            reduce_ms=timer(lambda: cuda_scatter.windowed_scatter(*ah),
-                            match='windowed_reduce')['ms'],
-            route_ms=timer(lambda: cuda_scatter.windowed_scatter(*ah),
-                           match='windowed_route')['ms'],
+            longest_segment=longest, stages=stages,
+            reduce_ms=stages['windowed_reduce'], **order,
             # the plain version on the card is a loop of small launches
             # (one step a row of the longest segment): its wall, from
             # CUDA events, not a profile of thousands of events
@@ -641,6 +700,27 @@ def phase_kernels(device='cuda', n_points=N_POINTS, mesh_fn=_kernel_mesh,
                 *ah), reps=3, warmup=1),
             **library_index_add(timer, lib_out, tgt_k, rows_k,
                                 cuda_scatter.windowed_scatter(*ah)))
+    # the reduce alone against the longest segment: the path's rows with
+    # the first L rows moved onto one face, L up to every row
+    sweep_L = {}
+    for L in (1, 169, 942, 44_839, N):
+        fid_L = inp.fid.clone()
+        fid_L[:L] = 7
+        starts_L = inp.meta_starts.clone()
+        starts_L[:-(-L // 256), 0] = 0
+        args_L = ('ah', inp.w, inp.res, None, fid_L, inp.js, starts_L,
+                  inp.sub_ids, Fp)
+        out = cuda_scatter.windowed_scatter(*args_L)
+        n_bits = bits_differ(out, cuda_scatter.windowed_scatter_plain(
+            *to_cpu(args_L)))
+        check(n_bits == 0, f'K2 with {L} rows on one face: {n_bits} values '
+              f'differ from the plain version in bits')
+        st = device_stages(lambda: cuda_scatter.windowed_scatter(*args_L),
+                           K2_STAGES, reps=5, warmup=1)
+        sweep_L[L] = dict(all_ms=st['all'], reduce_ms=st['windowed_reduce'])
+    print('  K2 reduce against the longest segment: '
+          + json.dumps({L: {k: round(v, 5) for k, v in r.items()}
+                        for L, r in sweep_L.items()}), flush=True)
     k2_bytes = (nbytes(inp.w, inp.res, inp.fid, inp.js, inp.meta_starts,
                        inp.sub_ids) + Fp * 12 * 4)
     bms, bby = bound_ms(k2_bytes, 24.0 * N)
@@ -653,7 +733,7 @@ def phase_kernels(device='cuda', n_points=N_POINTS, mesh_fn=_kernel_mesh,
         bound_ms=bms, bound_by=bby, library_ms=k2['path']['library_ms'],
         checks=dict(path={k: v for k, v in k2['path'].items()
                           if k not in ('ms', 'call_ms', 'plain_ms')},
-                    adversarial=k2['adversarial'],
+                    adversarial=k2['adversarial'], longest_sweep=sweep_L,
                     **{f'bits_differ_{k}': v for k, v in k2_bits.items()}))
 
     progress('K2')
@@ -661,8 +741,9 @@ def phase_kernels(device='cuda', n_points=N_POINTS, mesh_fn=_kernel_mesh,
     # ---- the ordered segment sum: the fit's other accumulations -------
     # vertex normals' corner rows (3 Fp, 3) onto the vertices (timed),
     # the fold's (3 Fp, 7) corner rows, the brute-force search's A^T
-    # rows (N, 12) onto the faces, and the fold's overflow onto a table
-    # (init): each equal, bit for bit, to the plain version on a CPU copy
+    # rows (N, 12) onto the faces, the fold's overflow onto a table
+    # (init), and the corner rows all on one vertex: each equal, bit for
+    # bit, to the plain version on a CPU copy
     from ch_shrinkwrap_torch.ops import normals
     ma = inp.ma
     corners = normals.vertex_normal_corners(ma.positions, ma.faces,
@@ -670,11 +751,13 @@ def phase_kernels(device='cuda', n_points=N_POINTS, mesh_fn=_kernel_mesh,
     faces_t = ma.faces.reshape(-1)
     ah_rows = cuda_scatter._columns('ah', inp.w, inp.res, None)
     init = torch.randn((Vp, 7), generator=inp.g, device=dev)
+    one_face = torch.full_like(faces_t, 11)
     cases = {'normals': (corners, faces_t, Vp, None),
              'fold': (inp.fused, faces_t, Vp, None),
              'brute_ah': (ah_rows, inp.fid, Fp, None),
-             'fold_init': (inp.fused, faces_t, Vp, init)}
-    seg_bits = {}
+             'fold_init': (inp.fused, faces_t, Vp, init),
+             'one_vertex': (corners, one_face, Vp, None)}
+    seg_bits, seg_stages = {}, {}
     for key, (rows, tgt, S, ini) in cases.items():
         out = cuda_scatter.segment_sum_ordered(rows, tgt, S, init=ini)
         ref = cuda_scatter.segment_sum_ordered_plain(
@@ -682,7 +765,21 @@ def phase_kernels(device='cuda', n_points=N_POINTS, mesh_fn=_kernel_mesh,
         n_bits = bits_differ(out, ref)
         check(n_bits == 0, f'segment_sum_ordered {key}: {n_bits} values '
               f'differ from the plain version in bits')
+        check(bits_differ(out, cuda_scatter.segment_sum_ordered(
+            rows, tgt, S, init=ini)) == 0,
+            f'segment_sum_ordered {key}: two launches differ')
         seg_bits[key] = n_bits
+        if key in ('normals', 'brute_ah', 'one_vertex'):
+            tl_ = tgt.long()
+            longest = int(torch.bincount(tl_[(tl_ >= 0) & (tl_ < S)],
+                                         minlength=S).max())
+            st = device_stages(lambda: cuda_scatter.segment_sum_ordered(
+                rows, tgt, S), K2S_STAGES)
+            seg_stages[key] = dict(longest_segment=longest, **st,
+                                   **check_order(tgt, S, f'K2s {key}'))
+            print(f'  K2s {key} (longest segment {longest}): '
+                  + json.dumps({k: round(v, 5) for k, v in st.items()}),
+                  flush=True)
     step = cuda_scatter.segment_sum_stepwise(corners, faces_t, Vp)
     check(bits_differ(step, cuda_scatter.segment_sum_ordered(
         corners, faces_t, Vp)) == 0,
@@ -693,11 +790,10 @@ def phase_kernels(device='cuda', n_points=N_POINTS, mesh_fn=_kernel_mesh,
     lib_out = torch.zeros((Vp, 3), device=dev)
     rec_s = dict(
         ms=ts['ms'], call_ms=ts['call_ms'],
-        kernel_ms=timer(lambda: cuda_scatter.segment_sum_ordered(
-            corners, faces_t, Vp), match='segment_sum')['ms'],
+        kernel_ms=seg_stages['normals']['segment_reduce'],
         plain_ms=time_ms(lambda: cuda_scatter.segment_sum_ordered_plain(
             corners, faces_t, Vp), reps=5, warmup=1),
-        longest_segment=int(torch.bincount(tl, minlength=Vp).max()),
+        longest_segment=seg_stages['normals']['longest_segment'],
         **library_index_add(timer, lib_out, tl, corners,
                             cuda_scatter.segment_sum_ordered(
                                 corners, faces_t, Vp)))
@@ -715,6 +811,7 @@ def phase_kernels(device='cuda', n_points=N_POINTS, mesh_fn=_kernel_mesh,
         library_ms=rec_s['library_ms'],
         checks=dict(normals={k: v for k, v in rec_s.items()
                              if k not in ('ms', 'call_ms', 'plain_ms')},
+                    stages=seg_stages,
                     brute_ah_ms=tb['ms'], brute_ah_call_ms=tb['call_ms'],
                     **{f'bits_differ_{k}': v for k, v in seg_bits.items()}))
 

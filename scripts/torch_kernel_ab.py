@@ -37,21 +37,32 @@ def _smoke():
     return mod
 
 
-def path_device_times(inp, timer):
+def path_device_times(inp, timer, smoke):
     """Device time of each kernel wrapper call of one CG iteration on
     the path's inputs, through the calls every version of the port
     has: K1, K2 in 'ah' mode (all the call's device work: its kernels,
-    and the zero fill or the ordering each version needs), the tri /
-    ncc / S gathers, and the whole faces -> vertices fold (``_fold``
-    with the gather tables)."""
+    and the zero fill or the ordering each version needs) on the path's
+    rows and on ``chip_smoke.adversarial_rows``, K2s
+    (``segment_sum_ordered``) on the vertex normals' corner rows, the tri / ncc / S gathers, and the whole
+    faces -> vertices fold (``_fold`` with the gather tables)."""
     from ch_shrinkwrap_torch.ops import cuda_gather, cuda_scatter
-    from ch_shrinkwrap_torch.ops import cuda_window
+    from ch_shrinkwrap_torch.ops import cuda_window, normals
     from ch_shrinkwrap_torch.solver.shrinkwrap import _fold
+    fid_adv = smoke.adversarial_rows(inp)
     out = {'K1': timer(lambda: cuda_window.window_min(*inp.k1_args),
                        match='window_min', reps=10),
            'K2': timer(lambda: cuda_scatter.windowed_scatter(
                'ah', inp.w, inp.res, None, inp.fid, inp.js,
-               inp.meta_starts, inp.sub_ids, inp.Fp))}
+               inp.meta_starts, inp.sub_ids, inp.Fp)),
+           'K2.adversarial': timer(lambda: cuda_scatter.windowed_scatter(
+               'ah', inp.w, inp.res, None, fid_adv, inp.js,
+               inp.meta_starts, inp.sub_ids, inp.Fp), reps=5)}
+    ma = inp.ma
+    corners = normals.vertex_normal_corners(
+        ma.positions, ma.faces, ma.f_mask).reshape(-1, 3)
+    faces_t = ma.faces.reshape(-1)
+    out['K2s.normals'] = timer(lambda: cuda_scatter.segment_sum_ordered(
+        corners, faces_t, inp.Vp))
     for key, (src, idx) in inp.gathers.items():
         out['K3.' + key] = timer(lambda: cuda_gather.row_gather(src, idx),
                                  match='row_gather')
@@ -98,7 +109,7 @@ def child(root, dump_dir):
     torch.backends.cuda.matmul.allow_tf32 = False
     import ch_shrinkwrap_torch
     inp = smoke.path_inputs()
-    times = path_device_times(inp, smoke.device_ms)
+    times = path_device_times(inp, smoke.device_ms, smoke)
     n_bad, bad = k1_disagreements(inp, dump_dir)
     print(json.dumps({'root': root,
                       'package': os.path.dirname(

@@ -335,3 +335,129 @@ def test_fit_on_the_card_launches_every_kernel(dev):
     r = np.linalg.norm(m.vertices, axis=1)
     assert abs(r.mean() - 50.0) < 1.5
     assert m.euler_characteristic == 2 and m.is_manifold
+
+
+# ---- the radix ordering and the reduce of K2 and K2s ------------------
+
+ORDER_CASES = ['path', 'adversarial', 'all_dropped', 'one_segment',
+               'unaligned'] + [f'S{s}' for s in (1, 127, 128, 129, 1023,
+                                                  1024, 1025, 2 ** 19 + 1)]
+
+
+def _order_targets(case, dev):
+    """(targets int64, num_segments) of one ordering case: path-like
+    targets (a slow random walk over 487,112 faces, as K1's face ids of
+    a sorted cloud), 44,839 rows on one face among them, every row
+    dropped, one segment, N no multiple of the 4096-row tile, and
+    random targets over tables whose key widths straddle a power of
+    two; rows dropped below 0 and at or past the table."""
+    g = torch.Generator(device=dev).manual_seed(len(case))
+    N = 1_000_000
+    if case in ('path', 'adversarial'):
+        S = 487_112
+        step = torch.randint(-1, 3, (N,), generator=g, device=dev)
+        t = torch.clamp(torch.cumsum(step, 0) // 4, 0, S - 1)
+        if case == 'adversarial':
+            t[torch.randperm(N, generator=g, device=dev)[:44_839]] = 77
+    elif case == 'all_dropped':
+        S = 1000
+        t = torch.full((N,), -1, device=dev)
+        t[::2] = S
+    elif case == 'one_segment':
+        S = 4096
+        t = torch.full((N,), 4095, device=dev)
+    elif case == 'unaligned':
+        S, N = 50_000, 100_003
+        t = torch.randint(0, S, (N,), generator=g, device=dev)
+    else:
+        S, N = int(case[1:]), 300_001
+        t = torch.randint(0, S, (N,), generator=g, device=dev)
+    drop = torch.rand(N, generator=g, device=dev) < 0.01
+    t = torch.where(drop, torch.randint(-2, 0, (N,), generator=g,
+                                        device=dev), t)
+    t[:3] = S
+    return t, S
+
+
+@pytest.mark.parametrize('case', ORDER_CASES)
+def test_radix_order_equals_segment_order(dev, case):
+    """The kernels' stable radix ordering gives ``segment_order``'s
+    ``perm`` and ``offsets`` exactly, from int32 and int64 targets, and
+    the same on a second launch."""
+    from ch_shrinkwrap_torch.ops import cuda_scatter
+    t, S = _order_targets(case, dev)
+    key = torch.where((t >= 0) & (t < S), t, S).int()
+    perm, offsets = cuda_scatter.segment_order(key, S)
+    for tt in (t, t.int()):
+        p2, o2 = cuda_scatter.radix_order(tt, S)
+        torch.cuda.synchronize()
+        assert p2.dtype == torch.int32 and o2.dtype == torch.int32
+        assert torch.equal(p2.long(), perm), case
+        assert torch.equal(o2, offsets), case
+    p3, o3 = cuda_scatter.radix_order(t, S)
+    assert torch.equal(p3.long(), perm) and torch.equal(o3, offsets)
+
+
+SEG_LENGTHS = [0, 1, 31, 32, 33, 169, 942, 65_536, 'N']
+
+
+def _long_case(dev, L, N=200_000, S=3000):
+    """Targets whose segment 9 has exactly L rows (every row for 'N'),
+    the others a few each, 1% dropped; rows of magnitudes 1e-6 to 1e8,
+    so the order of the adds shows in the bits."""
+    g = torch.Generator(device=dev).manual_seed(7)
+    if L == 'N':
+        t = torch.full((N,), 9, device=dev)
+    else:
+        t = torch.randint(10, S, (N,), generator=g, device=dev)
+        t[torch.rand(N, generator=g, device=dev) < 0.01] = -1
+        t[torch.randperm(N, generator=g, device=dev)[:L]] = 9
+    scale = 10.0 ** (torch.rand((N, 1), generator=g, device=dev) * 14 - 6)
+    return t, S, scale, g
+
+
+@pytest.mark.parametrize('L', SEG_LENGTHS)
+@pytest.mark.parametrize('mode', ['ah', 'ahw2', 'w2', 'given'])
+def test_windowed_scatter_segment_lengths(dev, mode, L):
+    """K2 where one face has L rows: bit-equal to the plain version on a
+    CPU copy, and the same on a second launch."""
+    from ch_shrinkwrap_torch.ops import cuda_scatter
+    t, S, scale, g = _long_case(dev, L)
+    N = t.shape[0]
+    fid = torch.where(t >= 0, t, S).int()
+    starts = torch.zeros((-(-N // 256), 3), dtype=torch.int32, device=dev)
+    js = torch.full((N,), -1, dtype=torch.int32, device=dev)
+    sub = torch.arange(64, dtype=torch.int32, device=dev)
+    w = (torch.rand((N, 3), generator=g, device=dev) + 0.1) * scale
+    res = torch.randn((N, 3), generator=g, device=dev) * scale
+    vals = torch.randn((N, 11), generator=g, device=dev) * scale
+    args = (mode, w, res if mode in ('ah', 'ahw2') else None,
+            vals if mode == 'given' else None, fid, js, starts, sub, S,
+            256, S + 128)
+    out = cuda_scatter.windowed_scatter(*args)
+    ref = cuda_scatter.windowed_scatter_plain(*_cpu(args))
+    assert bool((ref[9] != 0).any()) == (L != 0)
+    assert same_bits(out, ref)
+    assert same_bits(out, cuda_scatter.windowed_scatter(*args))
+
+
+@pytest.mark.parametrize('L', SEG_LENGTHS)
+@pytest.mark.parametrize('C', [1, 3, 7, 12, 29])
+def test_segment_sum_ordered_segment_lengths(dev, C, L):
+    """K2s where one segment has L rows, at widths on both sides of its
+    column chunks, with and without ``init``: bit-equal to the plain
+    version on a CPU copy, and the same on a second launch."""
+    from ch_shrinkwrap_torch.ops import cuda_scatter
+    t, S, scale, g = _long_case(dev, L)
+    rows = torch.randn((t.shape[0], C), generator=g, device=dev) * scale
+    if C == 1:
+        rows = rows[:, 0].contiguous()
+    init = torch.randn((S,) + tuple(rows.shape[1:]), generator=g,
+                       device=dev) * 1e3
+    for ini in (None, init):
+        out = cuda_scatter.segment_sum_ordered(rows, t, S, init=ini)
+        ref = cuda_scatter.segment_sum_ordered_plain(
+            rows.cpu(), t.cpu(), S, init=None if ini is None else ini.cpu())
+        assert same_bits(out, ref)
+        assert same_bits(out, cuda_scatter.segment_sum_ordered(
+            rows, t.int(), S, init=ini))

@@ -17,6 +17,7 @@ outside the plain ordered sum.
 
 import ast
 import os
+import re
 
 import numpy as np
 import pytest
@@ -248,10 +249,15 @@ def _accumulating_calls(path):
     return found
 
 
+ATOMIC = re.compile(r'atomic[A-Z_]\w*|\batom\.|\bred\.|cuda::atomic')
+
+
 def test_no_accumulation_outside_the_plain_ordered_sum():
     """No ``index_add``/``index_add_``, ``scatter_add`` or accumulating
     ``index_put_`` in the port outside the plain ordered sum, and no
-    ``atomicAdd`` in its CUDA sources."""
+    atomic in its CUDA sources: no ``atomicAdd`` nor any other
+    ``atomic*`` function, no PTX ``atom.``/``red.``, no
+    ``cuda::atomic``."""
     stray, seen = [], set()
     for root, _, files in os.walk(PKG):
         for name in files:
@@ -265,10 +271,158 @@ def test_no_accumulation_outside_the_plain_ordered_sum():
                         stray.append(f'{rel}:{line} {func} {call}')
             elif name.endswith(('.cu', '.cuh')):
                 with open(path) as fh:
-                    if 'atomicAdd' in fh.read():
+                    src = fh.read()
+                    if 'atomicAdd' in src:
                         stray.append(f'{rel}: atomicAdd')
+                    stray += [f'{rel}: {m}' for m in ATOMIC.findall(src)]
     assert not stray, stray
     assert seen == {f for _, f in ALLOWED}
+
+
+# ---- the card's ordering: its digit plan, and no library ordering ------
+
+PLAN_SEGMENTS = [1, 127, 128, 129, 1023, 1024, 1025, 2 ** 19 + 1, 487_112,
+                 2 ** 31 - 2]
+
+
+@pytest.mark.parametrize('num_segments', PLAN_SEGMENTS)
+def test_digit_plan_covers_the_keys(num_segments):
+    """The radix ordering's digits cover ``bit_length(num_segments)``
+    bits (the dropped-row key is ``num_segments`` itself), from bit 0 up
+    without a gap, in the fewest passes of at most 10 bits, and each
+    pass's shared memory fits the 48 KB a launch may take without the
+    dynamic-memory attribute."""
+    plan = cuda_scatter.digit_plan(num_segments)
+    nbits = num_segments.bit_length()
+    assert [s for s, _ in plan] == list(np.cumsum([0] + [b for _, b in
+                                                         plan])[:-1])
+    assert sum(b for _, b in plan) == nbits
+    assert len(plan) == -(-nbits // cuda_scatter.RADIX_BITS_MAX)
+    assert all(1 <= b <= cuda_scatter.RADIX_BITS_MAX for _, b in plan)
+    assert max(b for _, b in plan) - min(b for _, b in plan) <= 1
+    assert num_segments >> nbits == 0 and (num_segments - 1) >> nbits == 0
+    assert all(cuda_scatter.radix_smem_bytes(b)
+               <= cuda_scatter.SMEM_STATIC_MAX for _, b in plan)
+
+
+def test_radix_order_on_the_cpu_is_segment_order():
+    """On a CPU tensor the ordering is its plain version: int32 and
+    int64 targets, rows dropped below 0 and at or past the table."""
+    rng = np.random.default_rng(16)
+    tgt = rng.integers(-3, S + 3, 5000)
+    key = torch.from_numpy(np.where((tgt >= 0) & (tgt < S), tgt, S)
+                           .astype(np.int32))
+    perm, offsets = cuda_scatter.segment_order(key, S)
+    for dt in (torch.int32, torch.int64):
+        p2, o2 = cuda_scatter.radix_order(torch.from_numpy(tgt).to(dt), S)
+        assert p2.dtype == torch.int32 and torch.equal(p2.long(), perm)
+        assert torch.equal(o2, offsets)
+    assert int(offsets[-1]) == int(((tgt >= 0) & (tgt < S)).sum())
+
+
+CARD_PATHS = ('windowed_scatter', 'segment_sum_ordered')
+LIBRARY_ORDERING = {'sort', 'argsort', 'searchsorted', 'segment_order',
+                    'unique', 'unique_consecutive', 'msort', 'topk'}
+PLAIN = {'windowed_scatter_plain', 'segment_sum_ordered_plain',
+         'segment_sum_stepwise', 'segment_order', 'route', '_columns'}
+
+
+def test_card_paths_call_no_library_ordering():
+    """``windowed_scatter`` and ``segment_sum_ordered`` and every helper
+    of this module they call (followed by name; the plain versions,
+    which keep theirs, excepted) call no ``sort``, ``argsort``,
+    ``searchsorted`` or ``segment_order``: the card orders its rows with
+    the kernels alone."""
+    with open(os.path.join(PKG, 'ops', 'cuda_scatter.py')) as fh:
+        tree = ast.parse(fh.read())
+    funcs = {n.name: n for n in tree.body if isinstance(n, ast.FunctionDef)}
+
+    def callee(node):
+        f = node.func
+        return f.attr if isinstance(f, ast.Attribute) else \
+            f.id if isinstance(f, ast.Name) else None
+
+    seen, todo, bad = set(), list(CARD_PATHS), []
+    while todo:
+        name = todo.pop()
+        if name in seen:
+            continue
+        seen.add(name)
+        for node in ast.walk(funcs[name]):
+            if isinstance(node, ast.Call):
+                c = callee(node)
+                if c in LIBRARY_ORDERING:
+                    bad.append(f'{name}:{node.lineno} {c}')
+                elif c in funcs and c not in PLAIN:
+                    todo.append(c)
+    assert not bad, bad
+    assert {'_order_args', 'digit_plan', '_check',
+            '_check_segment'} <= seen
+    # the plain versions keep their library ordering
+    plain = {callee(n) for n in ast.walk(funcs['segment_order'])
+             if isinstance(n, ast.Call)}
+    assert {'sort', 'searchsorted'} <= plain
+
+
+# ---- the plain versions at the kernels' segment lengths ----------------
+
+LENGTHS = [0, 1, 31, 32, 33, 169, 942, 65_536, 'N']
+N_LONG = 66_000
+S_LONG = 2_000
+
+
+@pytest.fixture(scope='module')
+def long_rows():
+    rng = np.random.default_rng(17)
+    scale = 10.0 ** rng.uniform(-6, 8, (N_LONG, 1))
+    return dict(
+        rows=(rng.normal(size=(N_LONG, 3)) * scale).astype(np.float32),
+        w=(rng.uniform(0.1, 1.0, (N_LONG, 3)) * scale).astype(np.float32),
+        res=(rng.normal(size=(N_LONG, 3)) * scale).astype(np.float32),
+        init=(rng.normal(size=(S_LONG, 3)) * 1e3).astype(np.float32))
+
+
+def long_targets(L, seed=18):
+    """Targets whose segment 5 has exactly L rows (all N_LONG for 'N'),
+    the others a few each, and some rows dropped (below 0 and at or
+    past S_LONG)."""
+    rng = np.random.default_rng(seed)
+    if L == 'N':
+        return np.full(N_LONG, 5)
+    tgt = rng.integers(6, S_LONG, N_LONG)
+    tgt[rng.random(N_LONG) < 0.01] = -1
+    tgt[rng.random(N_LONG) < 0.01] = S_LONG
+    tgt[rng.choice(N_LONG, L, replace=False)] = 5
+    return tgt
+
+
+@pytest.mark.parametrize('L', LENGTHS)
+def test_plain_versions_at_segment_lengths(long_rows, L):
+    """The plain versions where one segment has L rows (the lengths at
+    which the card's reduce changes hands between a lane and a warp, the
+    path's 169 and 942, 65,536 and every row): K2s with and without
+    ``init`` and K2 in 'ah' mode equal the Python loop of float32 adds
+    bit for bit."""
+    t = torch.from_numpy
+    tgt = long_targets(L)
+    assert int((tgt == 5).sum()) == (N_LONG if L == 'N' else L)
+    x, init = long_rows['rows'], long_rows['init']
+    for ini in (None, init):
+        out = cuda_scatter.segment_sum_ordered(
+            t(x), t(tgt), S_LONG, init=None if ini is None else t(ini))
+        assert np.array_equal(bits(out), bits(loop_sum(x, tgt, S_LONG,
+                                                       ini)))
+    # K2: every row in its block's one window, so it routes to its face
+    fid = np.where((tgt >= 0) & (tgt < S_LONG), tgt, S_LONG).astype(
+        np.int32)
+    starts = np.zeros((-(-N_LONG // 256), 3), np.int32)
+    w, res = long_rows['w'], long_rows['res']
+    out = cuda_scatter.windowed_scatter(
+        'ah', t(w), t(res), None, t(fid), t(np.full(N_LONG, -1, np.int32)),
+        t(starts), t(np.arange(8, dtype=np.int32)), S_LONG,
+        window=S_LONG + 128)
+    ref = loop_sum(mode_rows('ah', dict(w=w, res=res)), fid, S_LONG)
+    assert np.array_equal(bits(out), bits(ref))
 
 
 # ---- the former index_add_ sites give the same bits --------------------
