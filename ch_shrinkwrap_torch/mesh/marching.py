@@ -15,6 +15,8 @@ from __future__ import annotations
 
 import numpy as np
 
+from ..utils.tracing import FitTrace
+
 # Freudenthal/Kuhn decomposition: the 6 tets are the 6 axis-orderings
 # of the path from corner 0 (0,0,0) to corner 7 (1,1,1); corner id is
 # bit-coded dx + 2 dy + 4 dz.
@@ -210,41 +212,52 @@ def wrap_start(points, offset=10.0, neighbourhood=50, grid_n=48,
     isosurface). 200k/1e6 is ~3.5x faster again BUT measurably noisier
     (seed-surface radial std 0.9 vs 0.5 nm on the benchmark sphere,
     and the downstream 20-iter fit converged 6 nm worse) — hence
-    opt-in, not default."""
+    opt-in, not default.
+
+    The returned mesh carries the ``FitTrace`` of its ``seed`` span
+    (``mesh.trace``), which a ``MembraneMesh`` built from it continues."""
     from .core import TriangleMesh
     from .remesh import remesh
     from .. import native
 
-    points = np.asarray(points)
-    if max_tree_points is not None and len(points) > max_tree_points:
-        frac = max_tree_points / len(points)
-        k_eff = max(3, int(round(neighbourhood * frac)))
-        sel = np.random.default_rng(0).choice(len(points),
-                                              max_tree_points,
-                                              replace=False)
-        field_pts = points[sel]
-    else:
-        k_eff = neighbourhood
-        field_pts = points
+    trace = FitTrace()
+    with trace.span('seed'):
+        points = np.asarray(points)
+        if max_tree_points is not None and len(points) > max_tree_points:
+            frac = max_tree_points / len(points)
+            k_eff = max(3, int(round(neighbourhood * frac)))
+            sel = np.random.default_rng(0).choice(len(points),
+                                                  max_tree_points,
+                                                  replace=False)
+            field_pts = points[sel]
+        else:
+            k_eff = neighbourhood
+            field_pts = points
 
-    lo = points.min(0) - 2 * offset
-    hi = points.max(0) + 2 * offset
-    step = float((hi - lo).max()) / grid_n
+        lo = points.min(0) - 2 * offset
+        hi = points.max(0) + 2 * offset
+        step = float((hi - lo).max()) / grid_n
 
-    # crossing-edge endpoints satisfy d_k < offset + sqrt(3)*step
-    # (1-Lipschitz field, body-diagonal tet edges); 1.8 adds margin
-    bound = offset + 1.8 * step
+        # crossing-edge endpoints satisfy d_k < offset + sqrt(3)*step
+        # (1-Lipschitz field, body-diagonal tet edges); 1.8 adds margin
+        bound = offset + 1.8 * step
 
-    def f(p):
-        d = native.knn_field(field_pts, p, k_eff, bound)
-        return np.where(d <= bound, d, bound) - offset
+        def f(p):
+            with trace.span('field'):
+                d = native.knn_field(field_pts, p, k_eff, bound)
+            return np.where(d <= bound, d, bound) - offset
 
-    v, fc = surface_from_function(f, (lo[0], lo[1], lo[2],
-                                      hi[0], hi[1], hi[2]), step)
-    mesh = TriangleMesh(v, fc)
-    mesh.repair()
-    mesh.remove_inner_surfaces()
-    remesh(mesh, n=3, target_edge_length=step * 0.7, n_relax=2)
+        with trace.span('march'):
+            v, fc = surface_from_function(f, (lo[0], lo[1], lo[2],
+                                              hi[0], hi[1], hi[2]), step)
+        with trace.span('clean'):
+            mesh = TriangleMesh(v, fc)
+            mesh.repair()
+            mesh.remove_inner_surfaces()
+        # the fit that starts from this surface continues its trace
+        mesh.trace = trace
+        with trace.span('remesh'):
+            remesh(mesh, n=3, target_edge_length=step * 0.7, n_relax=2)
     return mesh
 
 

@@ -18,6 +18,8 @@ from __future__ import annotations
 
 import numpy as np
 
+from ..utils import tracing
+
 
 def unique_edges(faces: np.ndarray):
     """Unique undirected edges of (F, 3) faces.
@@ -442,30 +444,19 @@ def remesh(mesh, n=5, target_edge_length=-1.0, l=0.5, n_relax=10,
         target_edge_length = float(mesh._mean_edge_length)
 
     if use_native:
-        import os as _os
-        import time as _t
         from .. import native
-        _ft = _os.environ.get('CSW_FINE_TIMERS') and _t.time
-        _t0 = _ft and _ft()
-        out = native.remesh(v, f, float(target_edge_length), n_passes=n,
-                            l=l, n_relax=n_relax,
-                            veto_cos=collapse_veto_cos,
-                            veto_min_len=(collapse_veto_min_frac
-                                          * float(target_edge_length)))
-        if _ft:
-            _t1 = _ft()
-        mesh.set_topology(out[0], out[1])
-        if _ft:
-            _t2 = _ft()
+        with tracing.span(mesh, 'engine'):
+            out = native.remesh(v, f, float(target_edge_length), n_passes=n,
+                                l=l, n_relax=n_relax,
+                                veto_cos=collapse_veto_cos,
+                                veto_min_len=(collapse_veto_min_frac
+                                              * float(target_edge_length)))
+        with tracing.span(mesh, 'topology'):
+            mesh.set_topology(out[0], out[1])
         # collapse can shrink split-off fragments below a closed
         # surface's 4-face minimum (degenerate pillows)
-        mesh.remove_degenerate_components()
-        if _ft:
-            import logging as _lg
-            _lg.getLogger(__name__).info(
-                'remesh fine: native %.2fs set_topology %.2fs '
-                'degen %.2fs (V %d->%d)', _t1 - _t0, _t2 - _t1,
-                _ft() - _t2, v.shape[0], out[0].shape[0])
+        with tracing.span(mesh, 'components'):
+            mesh.remove_degenerate_components()
         return mesh
 
     high = 4.0 / 3.0 * target_edge_length

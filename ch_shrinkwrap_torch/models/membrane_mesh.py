@@ -24,7 +24,6 @@ from __future__ import annotations
 
 import logging
 import math
-import time
 
 import numpy as np
 import torch
@@ -38,6 +37,7 @@ from ..ops import normals as _norm
 from ..ops.ordering import fit_point_order
 from ..parallel import sharding
 from ..solver.shrinkwrap import CORR_ALIASES, block_call
+from ..utils import tracing
 from ..utils.tracing import FitTrace
 
 logger = logging.getLogger(__name__)
@@ -134,9 +134,13 @@ class MembraneMesh(TriangleMesh):
         self._last_diag = None
         self._curv_state = None
         self.mdh = {}
-        self.trace = None
+        # a seed surface from wrap_start carries the trace of its spans
+        seed_trace = getattr(mesh, 'trace', None)
+        self.trace = FitTrace() if seed_trace is None \
+            else seed_trace.continued()
 
-        TriangleMesh.__init__(self, vertices, faces, mesh, **kwargs)
+        with self.trace.span('construct'):
+            TriangleMesh.__init__(self, vertices, faces, mesh, **kwargs)
 
         self.vertex_properties = ['E', 'curvature_principal0',
                                   'curvature_principal1', 'point_dis',
@@ -492,9 +496,8 @@ class MembraneMesh(TriangleMesh):
         necks, and nothing is removed (the reference removes them
         unconditionally).  Returns ``(flagged, removed)`` vertex
         counts."""
-        t0 = time.time()
-        K = self.curvature_gaussian
-        t_curv = time.time() - t0
+        with tracing.span(self, 'curvature'):
+            K = self.curvature_gaussian
         V = self.vertices.shape[0]
         if self.neck_detector == 'separator':
             low = self._separator_neck_vertices(
@@ -520,25 +523,24 @@ class MembraneMesh(TriangleMesh):
                     len(verts), V)
                 return n_flagged, 0
         if len(verts) == 0:
-            logger.info('remove_necks[%s]: 0 verts flagged (curv %.2fs)',
-                        self.neck_detector, t_curv)
+            logger.info('remove_necks[%s]: 0 verts flagged',
+                        self.neck_detector)
             return n_flagged, 0
-        t1 = time.time()
-        self.unsafe_remove_vertices(verts)
-        self.repair()
-        t2 = time.time()
+        with tracing.span(self, 'repair'):
+            self.unsafe_remove_vertices(verts)
+            self.repair()
         if not defer_remesh:
             self.remesh(n_relax=0)
-        t3 = time.time()
-        self.remove_inner_surfaces()
-        # a ring of flagged vertices can cut off a closed piece of a few
-        # faces that lies on the surface, not inside it; the JAX package
-        # keeps such a piece (its repair drops only pieces under 8 faces)
-        self.remove_degenerate_components(min_faces=NECK_FRAGMENT_FACES)
-        logger.info('remove_necks[%s]: %d verts - curv %.2fs, '
-                    'remove+repair %.2fs, remesh %.2fs, inner %.2fs',
-                    self.neck_detector, len(verts), t_curv, t2 - t1,
-                    t3 - t2, time.time() - t3)
+        with tracing.span(self, 'inner'):
+            self.remove_inner_surfaces()
+            # a ring of flagged vertices can cut off a closed piece of a
+            # few faces that lies on the surface, not inside it; the JAX
+            # package keeps such a piece (its repair drops only pieces
+            # under 8 faces)
+            self.remove_degenerate_components(
+                min_faces=NECK_FRAGMENT_FACES)
+        logger.info('remove_necks[%s]: %d verts removed',
+                    self.neck_detector, len(verts))
         return n_flagged, int(len(verts))
 
     def punch_holes(self, pts, eps=10.0):
@@ -579,29 +581,27 @@ class MembraneMesh(TriangleMesh):
         verts = np.unique(he.vertex[short])
         if len(verts) == 0:
             return
-        t1 = time.time()
-        # a hygiene pass must never raise the component count: snapshot
-        # and roll back when it does (or when it empties the mesh)
-        snap_v = self.vertices.copy()
-        snap_f = self.faces.copy()
-        n_before = self.connected_components()[1]
-        self.unsafe_remove_vertices(verts)
-        self.repair()
-        t2 = time.time()
+        with tracing.span(self, 'repair'):
+            # a hygiene pass must never raise the component count:
+            # snapshot and roll back when it does (or when it empties
+            # the mesh)
+            snap_v = self.vertices.copy()
+            snap_f = self.faces.copy()
+            n_before = self.connected_components()[1]
+            self.unsafe_remove_vertices(verts)
+            self.repair()
         if not defer_remesh:
             self.remesh(n_relax=0)
-        t3 = time.time()
-        self.remove_inner_surfaces()
-        n_after = self.connected_components()[1]
+        with tracing.span(self, 'inner'):
+            self.remove_inner_surfaces()
+            n_after = self.connected_components()[1]
         if n_after > n_before or (n_after == 0 and n_before > 0):
             self.set_topology(snap_v, snap_f)
             self._initialize_curvature_vectors()
             logger.info('short_edges: rolled back (%d verts - removal '
                         'would disconnect the surface)', len(verts))
             return
-        logger.info('short_edges: %d verts - remove+repair %.2fs, remesh '
-                    '%.2fs, inner %.2fs', len(verts), t2 - t1, t3 - t2,
-                    time.time() - t3)
+        logger.info('short_edges: %d verts removed', len(verts))
 
     # ------------------------------------------------------------------
     # the fit
@@ -636,145 +636,157 @@ class MembraneMesh(TriangleMesh):
                     sharding.fit_rank, (type(self),
                                         sharding.host_state(self),
                                         points, sigma, kw))
-        rank = None if dmesh is None else sharding.spmd_rank(dmesh)
-        cap_mode = self.capacity_mode
-        if cap_mode not in ('final', 'two', 'bucketed'):
-            raise ValueError(f'unknown capacity_mode {cap_mode!r}')
-        # the edge-length schedule's step: with both cadences on, the
-        # reference's block length gcd(remesh, punch) (pyx:1430-1441)
-        if r and dr:
-            rf = math.gcd(self.remesh_frequency,
-                          self.delaunay_remesh_frequency)
-        elif r:
-            rf = self.remesh_frequency
-        elif dr:
-            rf = self.delaunay_remesh_frequency
-        else:
-            rf = max_iter
-
-        if r:
-            initial_length = self._mean_edge_length
-            if kwargs.get('minimum_edge_length', -1) < 0:
-                final_length = float(np.clip(np.min(sigma) / 2.5, 1.0, 50.0))
-            else:
-                final_length = kwargs.get('minimum_edge_length')
-            m = (final_length - initial_length) / (rf * np.ceil(max_iter / rf))
-
-        points = np.ascontiguousarray(points, dtype=np.float32)
-        N = points.shape[0]
-        # sigma -> per-point inverse errors (pyx:1460-1473)
-        if np.isscalar(sigma):
-            sigma_inv = np.full((N, 3), 1.0 / float(sigma), np.float32)
-        else:
-            sigma = np.asarray(sigma)
-            if sigma.ndim == 1 and sigma.shape[0] == N:
-                sigma_inv = (1.0 / sigma)[:, None].repeat(3, 1)
-            elif sigma.ndim == 2 and sigma.shape == (N, 3):
-                sigma_inv = 1.0 / sigma
-            else:
-                raise ValueError(
-                    f"Sigma must be scalar, ({N},) or ({N},3); got "
-                    f"{np.shape(sigma)}")
-            sigma_inv = sigma_inv.astype(np.float32)
-
-        w = sigma_inv if weights is None else \
-            np.asarray(weights, dtype=np.float32).reshape(N, 3)
-        res_weights = (w / w.mean()).astype(np.float32)
-
-        lam0 = float(step_size * self.kc / 2.0)
-        use_shrink = self.shrink_weight > 0
-        shrink_lam = float(self.shrink_weight)
-        n_iter = int(min(max_iter, self.truncate_at))
-
-        method = self.corr_method
-        if method != 'auto':
-            method = CORR_ALIASES.get(method, method)
-        if method == 'auto':
-            # windowed (K1 + K2) once brute force would cost more than
-            # 2e9 point-face pairs; which of a kernel or its plain
-            # version runs is decided by each wrapper from the tensors'
-            # device (CUDA -> kernel, CPU -> plain)
-            method = 'windowed' if N * 2 * self.vertices.shape[0] > 2e9 \
-                else 'brute'
-        self._last_corr_method = method
-        # face-side normal equations need strictly positive weights on
-        # every coordinate
-        uniform_weights = bool(np.all(res_weights > 0))
-
-        # capacity policy 'final': one capacity for the whole fit,
-        # predicted from the last executed remesh boundary's clamped
-        # target length (pyx:1541-1546 leaves the schedule unclamped);
-        # 'two' starts at a mid rung and keeps the final one in
-        # _cap_rungs; 'bucketed' sizes each block in the loop
-        self._cap_rungs = []
-        if r and cap_mode in ('final', 'two'):
-            last_remesh_iter = (n_iter // self.remesh_frequency) \
-                * self.remesh_frequency
-            pred_final_len = max(float(np.clip(
-                initial_length + m * (last_remesh_iter + 1),
-                min(initial_length, final_length),
-                max(initial_length, final_length))), 1e-3)
-            # F = 1.15 area / equilateral-triangle-area(l), with 1.15
-            # headroom on top (the seed is an outer wrap, so its area
-            # bounds the final area)
-            pred_faces = 1.15 * self.area() / (np.sqrt(3.0) / 4.0
-                                               * pred_final_len ** 2)
-            pred_faces = max(pred_faces, self.faces.shape[0])
-            f_cap = meshdata.round_up_bucket(int(1.15 * pred_faces),
-                                             self.pad_quantum)
-            v_cap = meshdata.round_up_bucket(int(1.15 * pred_faces / 2) + 8,
-                                             self.pad_quantum)
-            if cap_mode == 'two':
-                v_mid = meshdata.round_up_bucket(
-                    max(v_cap // 2, self.vertices.shape[0] + 8),
-                    self.pad_quantum)
-                f_mid = meshdata.round_up_bucket(
-                    max(2 * v_mid - 4, self.faces.shape[0]),
-                    self.pad_quantum)
-                if v_mid < v_cap and f_mid < f_cap:
-                    self._cap_rungs = [(v_cap, f_cap)]
-                    v_cap, f_cap = v_mid, f_mid
-                # else the seed is already past half the final size:
-                # one rung, as 'final'
-        else:
-            v_cap = f_cap = None
-        self._final_caps_pred = (v_cap, f_cap) if v_cap is not None \
-            else None
-
-        # block length: up to the next boundary of either cadence
-        ni_static = n_iter
-        if r:
-            ni_static = min(ni_static, self.remesh_frequency)
-        if dr:
-            ni_static = min(ni_static, self.delaunay_remesh_frequency)
-
-        # neck removal reads K at every remesh boundary: from the native
-        # host kernel, or (use_native_neck_k False) from the CG block on
-        # the device
-        want_K = bool(r and self.neck_first_iter > 0
-                      and not self.use_native_neck_k)
-
-        if method in ('windowed', 'blocked'):
-            order = fit_point_order(points)
-            points = np.ascontiguousarray(points[order])
-            sigma_inv = sigma_inv[order]
-            res_weights = res_weights[order]
-            self._points = points       # diagnostics follow this order
-
-        if dmesh is not None:
-            # this rank's slice of whole 256-point blocks
-            dev = dmesh.devices[rank]
-            pts_t, sig_t, w_t, pmask = sharding.shard_points(
-                dmesh, rank, points, sigma_inv, res_weights)
-        else:
-            dev = self.device
-            pts_t = torch.from_numpy(points).to(dev)
-            sig_t = torch.from_numpy(np.ascontiguousarray(sigma_inv)).to(dev)
-            w_t = torch.from_numpy(np.ascontiguousarray(res_weights)).to(dev)
-            pmask = torch.ones(N, dtype=torch.bool, device=dev)
-
         if self.trace is None:
+            # a sharded fit's spawned rank rebuilds its model
+            # without one
             self.trace = FitTrace()
+        trace = self.trace
+        trace.j = 0
+        # the set-up before the loop
+        with trace.span('prep'):
+            rank = None if dmesh is None else sharding.spmd_rank(dmesh)
+            cap_mode = self.capacity_mode
+            if cap_mode not in ('final', 'two', 'bucketed'):
+                raise ValueError(f'unknown capacity_mode {cap_mode!r}')
+            # the edge-length schedule's step: with both cadences on, the
+            # reference's block length gcd(remesh, punch) (pyx:1430-1441)
+            if r and dr:
+                rf = math.gcd(self.remesh_frequency,
+                              self.delaunay_remesh_frequency)
+            elif r:
+                rf = self.remesh_frequency
+            elif dr:
+                rf = self.delaunay_remesh_frequency
+            else:
+                rf = max_iter
+
+            if r:
+                initial_length = self._mean_edge_length
+                if kwargs.get('minimum_edge_length', -1) < 0:
+                    final_length = float(np.clip(np.min(sigma) / 2.5,
+                                                 1.0, 50.0))
+                else:
+                    final_length = kwargs.get('minimum_edge_length')
+                m = (final_length - initial_length) \
+                    / (rf * np.ceil(max_iter / rf))
+
+            points = np.ascontiguousarray(points, dtype=np.float32)
+            N = points.shape[0]
+            # sigma -> per-point inverse errors (pyx:1460-1473)
+            if np.isscalar(sigma):
+                sigma_inv = np.full((N, 3), 1.0 / float(sigma), np.float32)
+            else:
+                sigma = np.asarray(sigma)
+                if sigma.ndim == 1 and sigma.shape[0] == N:
+                    sigma_inv = (1.0 / sigma)[:, None].repeat(3, 1)
+                elif sigma.ndim == 2 and sigma.shape == (N, 3):
+                    sigma_inv = 1.0 / sigma
+                else:
+                    raise ValueError(
+                        f"Sigma must be scalar, ({N},) or ({N},3); got "
+                        f"{np.shape(sigma)}")
+                sigma_inv = sigma_inv.astype(np.float32)
+
+            w = sigma_inv if weights is None else \
+                np.asarray(weights, dtype=np.float32).reshape(N, 3)
+            res_weights = (w / w.mean()).astype(np.float32)
+
+            lam0 = float(step_size * self.kc / 2.0)
+            use_shrink = self.shrink_weight > 0
+            shrink_lam = float(self.shrink_weight)
+            n_iter = int(min(max_iter, self.truncate_at))
+
+            method = self.corr_method
+            if method != 'auto':
+                method = CORR_ALIASES.get(method, method)
+            if method == 'auto':
+                # windowed (K1 + K2) once brute force would cost more than
+                # 2e9 point-face pairs; which of a kernel or its plain
+                # version runs is decided by each wrapper from the tensors'
+                # device (CUDA -> kernel, CPU -> plain)
+                method = 'windowed' if N * 2 * self.vertices.shape[0] > 2e9 \
+                    else 'brute'
+            self._last_corr_method = method
+            # face-side normal equations need strictly positive weights on
+            # every coordinate
+            uniform_weights = bool(np.all(res_weights > 0))
+
+            # capacity policy 'final': one capacity for the whole fit,
+            # predicted from the last executed remesh boundary's clamped
+            # target length (pyx:1541-1546 leaves the schedule unclamped);
+            # 'two' starts at a mid rung and keeps the final one in
+            # _cap_rungs; 'bucketed' sizes each block in the loop
+            self._cap_rungs = []
+            if r and cap_mode in ('final', 'two'):
+                last_remesh_iter = (n_iter // self.remesh_frequency) \
+                    * self.remesh_frequency
+                pred_final_len = max(float(np.clip(
+                    initial_length + m * (last_remesh_iter + 1),
+                    min(initial_length, final_length),
+                    max(initial_length, final_length))), 1e-3)
+                # F = 1.15 area / equilateral-triangle-area(l), with 1.15
+                # headroom on top (the seed is an outer wrap, so its area
+                # bounds the final area)
+                pred_faces = 1.15 * self.area() / (np.sqrt(3.0) / 4.0
+                                                   * pred_final_len ** 2)
+                pred_faces = max(pred_faces, self.faces.shape[0])
+                f_cap = meshdata.round_up_bucket(int(1.15 * pred_faces),
+                                                 self.pad_quantum)
+                v_cap = meshdata.round_up_bucket(
+                    int(1.15 * pred_faces / 2) + 8, self.pad_quantum)
+                if cap_mode == 'two':
+                    v_mid = meshdata.round_up_bucket(
+                        max(v_cap // 2, self.vertices.shape[0] + 8),
+                        self.pad_quantum)
+                    f_mid = meshdata.round_up_bucket(
+                        max(2 * v_mid - 4, self.faces.shape[0]),
+                        self.pad_quantum)
+                    if v_mid < v_cap and f_mid < f_cap:
+                        self._cap_rungs = [(v_cap, f_cap)]
+                        v_cap, f_cap = v_mid, f_mid
+                    # else the seed is already past half the final size:
+                    # one rung, as 'final'
+            else:
+                v_cap = f_cap = None
+            self._final_caps_pred = (v_cap, f_cap) if v_cap is not None \
+                else None
+
+            # block length: up to the next boundary of either cadence
+            ni_static = n_iter
+            if r:
+                ni_static = min(ni_static, self.remesh_frequency)
+            if dr:
+                ni_static = min(ni_static, self.delaunay_remesh_frequency)
+
+            # neck removal reads K at every remesh boundary: from the native
+            # host kernel, or (use_native_neck_k False) from the CG block on
+            # the device
+            want_K = bool(r and self.neck_first_iter > 0
+                          and not self.use_native_neck_k)
+
+            if method in ('windowed', 'blocked'):
+                with trace.span('order'):
+                    order = fit_point_order(points)
+                    points = np.ascontiguousarray(points[order])
+                    sigma_inv = sigma_inv[order]
+                    res_weights = res_weights[order]
+                    # diagnostics follow this order
+                    self._points = points
+
+            with trace.span('upload'):
+                if dmesh is not None:
+                    # this rank's slice of whole 256-point blocks
+                    dev = dmesh.devices[rank]
+                    pts_t, sig_t, w_t, pmask = sharding.shard_points(
+                        dmesh, rank, points, sigma_inv, res_weights)
+                else:
+                    dev = self.device
+                    pts_t = torch.from_numpy(points).to(dev)
+                    sig_t = torch.from_numpy(
+                        np.ascontiguousarray(sigma_inv)).to(dev)
+                    w_t = torch.from_numpy(
+                        np.ascontiguousarray(res_weights)).to(dev)
+                    pmask = torch.ones(N, dtype=torch.bool, device=dev)
 
         j = 0
         topo_dirty = True
@@ -790,103 +802,118 @@ class MembraneMesh(TriangleMesh):
                            - (j % self.delaunay_remesh_frequency))
             n_it = int(n_it)
 
-            t0 = time.time()
-            # host seconds of the topology rebuild, by step, for the trace
-            prep = {}
-            if topo_dirty or state is None:
-                # index locality for the device gathers and scatters
-                self.spatial_sort()
-                prep['sort_s'] = time.time() - t0
-                if r and cap_mode == 'bucketed':
-                    # 15% headroom inside the bucket, monotone
-                    vb, fb = meshdata.fit_buckets(
-                        self.vertices.shape[0], self.faces.shape[0],
-                        self.pad_quantum)
-                    v_cap = max(v_cap or 0, vb)
-                    f_cap = max(f_cap or 0, fb)
-                elif (r and cap_mode == 'two' and self._cap_rungs
-                        and (self.vertices.shape[0] > v_cap
-                             or self.faces.shape[0] > f_cap)):
-                    # the mesh outgrew the mid rung: advance to the
-                    # final one
-                    vb, fb = self._cap_rungs.pop(0)
-                    v_cap = max(v_cap, vb)
-                    f_cap = max(f_cap, fb)
-                if v_cap is not None and (self.vertices.shape[0] > v_cap
-                                          or self.faces.shape[0] > f_cap):
-                    # remesh overshot the prediction; grow the capacity
-                    v_cap = meshdata.round_up_bucket(
-                        int(1.3 * self.vertices.shape[0]),
-                        self.pad_quantum)
-                    f_cap = meshdata.round_up_bucket(
-                        int(1.3 * self.faces.shape[0]), self.pad_quantum)
-                # spatial_sort already Hilbert-ordered the faces
-                t1 = time.time()
-                ma = meshdata.from_mesh(self, v_cap=v_cap, f_cap=f_cap,
-                                        quantum=self.pad_quantum,
-                                        hilbert_faces=False, device=dev)
-                t2 = time.time()
-                prep['pad_s'] = t2 - t1
-                tables = None
-                if ma.positions.shape[0] > self.ring_gather_min_verts:
-                    tables = meshdata.gather_tables(ma)
-                prep['tables_s'] = time.time() - t2
-                state = (ma, tables)
-                positions = ma.positions
-            else:
-                ma, tables = state
-                positions = f_dev
+            with trace.span('cg_block') as blk:
+                # host seconds of the topology rebuild, by step
+                prep = {}
+                if topo_dirty or state is None:
+                    with trace.span('sort') as sp:
+                        # index locality for the device gathers and
+                        # scatters
+                        self.spatial_sort()
+                    prep['sort_s'] = sp.wall_time
+                    if r and cap_mode == 'bucketed':
+                        # 15% headroom inside the bucket, monotone
+                        vb, fb = meshdata.fit_buckets(
+                            self.vertices.shape[0], self.faces.shape[0],
+                            self.pad_quantum)
+                        v_cap = max(v_cap or 0, vb)
+                        f_cap = max(f_cap or 0, fb)
+                    elif (r and cap_mode == 'two' and self._cap_rungs
+                            and (self.vertices.shape[0] > v_cap
+                                 or self.faces.shape[0] > f_cap)):
+                        # the mesh outgrew the mid rung: advance to the
+                        # final one
+                        vb, fb = self._cap_rungs.pop(0)
+                        v_cap = max(v_cap, vb)
+                        f_cap = max(f_cap, fb)
+                    if v_cap is not None and (
+                            self.vertices.shape[0] > v_cap
+                            or self.faces.shape[0] > f_cap):
+                        # remesh overshot the prediction; grow the
+                        # capacity
+                        v_cap = meshdata.round_up_bucket(
+                            int(1.3 * self.vertices.shape[0]),
+                            self.pad_quantum)
+                        f_cap = meshdata.round_up_bucket(
+                            int(1.3 * self.faces.shape[0]),
+                            self.pad_quantum)
+                    # spatial_sort already Hilbert-ordered the faces
+                    with trace.span('pad') as sp:
+                        ma = meshdata.from_mesh(
+                            self, v_cap=v_cap, f_cap=f_cap,
+                            quantum=self.pad_quantum, hilbert_faces=False,
+                            device=dev)
+                    prep['pad_s'] = sp.wall_time
+                    with trace.span('tables') as sp:
+                        tables = None
+                        if ma.positions.shape[0] > self.ring_gather_min_verts:
+                            tables = meshdata.gather_tables(ma)
+                    prep['tables_s'] = sp.wall_time
+                    state = (ma, tables)
+                    positions = ma.positions
+                else:
+                    ma, tables = state
+                    positions = f_dev
 
-            t_block = time.time()
-            f_new, diag = block_call(
-                positions, ma.faces, ma.f_mask, ma.v_mask, ma.nbr_v,
-                pts_t, sig_t, w_t, pmask, lam0, shrink_lam,
-                num_iters=ni_static, active_iters=n_it,
-                use_shrink=use_shrink,
-                face_chunk=self.face_chunk, corr_method=method,
-                cell_size=(float(2.0 * self._mean_edge_length)
-                           if method == 'grid' else 1.0),
-                face_nbrs=ma.face_nbrs, tables=tables,
-                nbr_f=ma.nbr_f if want_K else None, want_curv_K=want_K,
-                face_hcgc=(method == 'windowed' and tables is not None
-                           and ma.positions.shape[0] > meshdata.HCGC_MIN_VP
-                           and uniform_weights),
-                spmd_mesh=dmesh)
-            if dmesh is not None:
-                # every rank goes on from rank 0's positions (and K)
-                sharding.broadcast_from_rank0(f_new, diag.K)
-                if j + n_it >= n_iter:
-                    diag = sharding.gather_diagnostics(diag, N)
-            f_dev = f_new
-            topo_dirty = False
-            self._last_diag = diag
-            V = self.vertices.shape[0]
-            new_pos = f_new[:V].cpu().numpy()
-            if not np.isfinite(new_pos).all():
-                # counterpart of the reference's NaN asserts
-                # (mesh_conj_grad.py:548,580,613)
-                raise FloatingPointError(
-                    'non-finite vertex positions after CG block at '
-                    f'iteration {j + n_it}; check sigma/weights inputs')
-            self.set_positions(new_pos)
-            self._initialize_curvature_vectors()
-            if diag.K is not None:
-                # seed the curvature cache with the block's K (the same
-                # positions and tables); other fields repopulate on demand
-                self._curv_state = {'_dev': _curv.CurvatureState(
-                    k_0=None, k_1=None, e_0=None, e_1=None, H=None,
-                    K=diag.K, dH=None, dK=None, E=None, pE=None,
-                    dE_neighbors=None, dEdN=None)}
-            j += n_it
-            # block_s: the CG block from its call to its positions back
-            # on the host
-            t_end = time.time()
-            self.trace.record('cg_block', j, t_end - t0, self,
-                              diag=diag, n_iters=n_it,
-                              v_cap=int(positions.shape[0]),
-                              block_s=t_end - t_block, **prep)
+                # the block: from its call to its positions on the host
+                with trace.span('block') as call:
+                    f_new, diag = block_call(
+                        positions, ma.faces, ma.f_mask, ma.v_mask, ma.nbr_v,
+                        pts_t, sig_t, w_t, pmask, lam0, shrink_lam,
+                        num_iters=ni_static, active_iters=n_it,
+                        use_shrink=use_shrink,
+                        face_chunk=self.face_chunk, corr_method=method,
+                        cell_size=(float(2.0 * self._mean_edge_length)
+                                   if method == 'grid' else 1.0),
+                        face_nbrs=ma.face_nbrs, tables=tables,
+                        nbr_f=ma.nbr_f if want_K else None,
+                        want_curv_K=want_K,
+                        face_hcgc=(method == 'windowed'
+                                   and tables is not None
+                                   and ma.positions.shape[0]
+                                   > meshdata.HCGC_MIN_VP
+                                   and uniform_weights),
+                        spmd_mesh=dmesh)
+                    if dmesh is not None:
+                        # every rank goes on from rank 0's positions and K
+                        sharding.broadcast_from_rank0(f_new, diag.K)
+                        if j + n_it >= n_iter:
+                            diag = sharding.gather_diagnostics(diag, N)
+                    f_dev = f_new
+                    topo_dirty = False
+                    self._last_diag = diag
+                    V = self.vertices.shape[0]
+                    new_pos = f_new[:V].cpu().numpy()
+                # the host state after the block, and this record
+                with trace.span('update'):
+                    if not np.isfinite(new_pos).all():
+                        # counterpart of the reference's NaN asserts
+                        # (mesh_conj_grad.py:548,580,613)
+                        raise FloatingPointError(
+                            'non-finite vertex positions after CG block '
+                            f'at iteration {j + n_it}; check sigma/weights '
+                            'inputs')
+                    self.set_positions(new_pos)
+                    self._initialize_curvature_vectors()
+                    if diag.K is not None:
+                        # seed the curvature cache with the block's K (the
+                        # same positions and tables); other fields
+                        # repopulate on demand
+                        self._curv_state = {'_dev': _curv.CurvatureState(
+                            k_0=None, k_1=None, e_0=None, e_1=None, H=None,
+                            K=diag.K, dH=None, dK=None, E=None, pE=None,
+                            dE_neighbors=None, dEdN=None)}
+                    j += n_it
+                    trace.j = j
+                    # block_s: the block's call to here, which overlaps
+                    # this span
+                    blk.extra.update(
+                        n_iters=n_it, v_cap=int(positions.shape[0]),
+                        block_s=(trace.now_ns() - call.start_ns) / 1e9,
+                        **prep)
+                    blk.observe(self, diag)
             logger.info('cg_block done j=%d/%d (%.1fs, V=%d, cap=%s)',
-                        j, n_iter, time.time() - t0,
+                        j, n_iter, blk.wall_time,
                         self.vertices.shape[0], v_cap)
 
             # at a shared boundary the punch comes first, then the
@@ -894,27 +921,26 @@ class MembraneMesh(TriangleMesh):
             # The punch gets the fit's one points array at every
             # boundary: its kNN field is cached on that array.
             if dr and (j % self.delaunay_remesh_frequency) == 0:
-                t0 = time.time()
-                n_punched = self.punch_holes(points, self.delaunay_eps)
-                self.trace.record('punch_holes', j, time.time() - t0,
-                                  self, n_punched=n_punched)
+                with trace.span('punch_holes') as rec:
+                    n_punched = self.punch_holes(points, self.delaunay_eps)
+                    rec.extra['n_punched'] = n_punched
+                    rec.observe(self)
                 if n_punched:
                     topo_dirty = True
 
             if r and (j % self.remesh_frequency) == 0:
                 defer = bool(self.defer_boundary_remesh)
-                t0 = time.time()
                 if self.neck_first_iter > 0 and j > self.neck_first_iter:
-                    flagged, removed = self.remove_necks(
-                        self.neck_threshold_low, self.neck_threshold_high,
-                        defer_remesh=defer)
-                    self.trace.record('remove_necks', j, time.time() - t0,
-                                      self, necks_flagged=flagged,
-                                      necks_removed=removed)
-                    t0 = time.time()
-                self.remove_extra_short_edges(defer_remesh=defer)
-                self.trace.record('short_edges', j, time.time() - t0, self)
-                t0 = time.time()
+                    with trace.span('remove_necks') as rec:
+                        flagged, removed = self.remove_necks(
+                            self.neck_threshold_low,
+                            self.neck_threshold_high, defer_remesh=defer)
+                        rec.extra.update(necks_flagged=flagged,
+                                         necks_removed=removed)
+                        rec.observe(self)
+                with trace.span('short_edges') as rec:
+                    self.remove_extra_short_edges(defer_remesh=defer)
+                    rec.observe(self)
                 # clamped to the schedule's endpoints: at j = n_iter
                 # divisible by rf the unclamped line overshoots
                 # final_length (pyx:1541-1546)
@@ -922,9 +948,10 @@ class MembraneMesh(TriangleMesh):
                     initial_length + m * (j + 1),
                     min(initial_length, final_length),
                     max(initial_length, final_length)))
-                self.remesh(5, target_length, 0.5, n_relax=0)
-                self.trace.record('remesh', j, time.time() - t0, self,
-                                  target_length=target_length)
+                with trace.span('remesh',
+                                target_length=target_length) as rec:
+                    self.remesh(5, target_length, 0.5, n_relax=0)
+                    rec.observe(self)
                 topo_dirty = True
                 logger.info(
                     'Shrinkwrapping iteration %d of %d - Remesh: target '
@@ -932,10 +959,10 @@ class MembraneMesh(TriangleMesh):
                     j, n_iter, target_length, self._mean_edge_length,
                     self.vertices.shape[0])
             if dmesh is not None:
-                t0 = time.time()
-                sharding.check_in_step(dmesh, self.vertices, self.faces,
-                                       where=f' after iteration {j}')
-                self.trace.record('in_step', j, time.time() - t0, self)
+                with trace.span('in_step') as rec:
+                    sharding.check_in_step(dmesh, self.vertices, self.faces,
+                                           where=f' after iteration {j}')
+                    rec.observe(self)
 
         logger.info('Shrinkwrapping complete in %d iterations (%s)',
                     j, self.trace.summary())

@@ -11,15 +11,18 @@ every 13 with a minimum hole radius of 100 nm, and a minimum edge of
 5 nm, from the ``wrap_start(offset=25, grid_n=48)`` seed.  The lighter
 no-surgery fit is ``--iters 20 --punch-frequency 0 --neck-first-iter -1``.
 
-Prints the fit line and the per-phase trace as the JAX script does,
-then one JSON line: seed and fit seconds, vertex count, mean radius
+Prints the fit line and the per-phase trace (the top-level spans) as
+the JAX script does, then one JSON line: seed and fit seconds, vertex count, mean radius
 and its spread, Euler characteristic, manifoldness, component count,
 the trace's wall totals by kind (with the CG blocks' host rebuild split
-into sort, pad and tables), and the card's name and power limit.  The
+into sort, pad and tables), and the card's name and power limit; with
+``--profile``, the device's busy seconds and its idle seconds by the
+port's span.  The
 compile prewarm of the JAX script has no counterpart here, and
 capacity modes other than 'final' are not ported (they raise).
 """
 import argparse
+import bisect
 import contextlib
 import json
 import logging
@@ -58,8 +61,10 @@ ap.add_argument('--device', default='cuda')
 ap.add_argument('--profile', action='store_true',
                 help='run the fit under torch.profiler and add the summed '
                      'device time of its kernels, copies and fills '
-                     '(device_busy_s) to the JSON line; the profiler slows '
-                     'the host, so read the wall from a run without it')
+                     '(device_busy_s) and its idle seconds by the port\'s '
+                     'innermost span (idle_by_span) to the JSON line; the '
+                     'profiler slows the host, so read the wall from a run '
+                     'without it')
 
 
 def card():
@@ -82,6 +87,30 @@ def device_busy_s(prof):
     return sum(e.time_range.end - e.time_range.start
                for e in prof.events()
                if e.device_type == DeviceType.CUDA) / 1e6
+
+
+def idle_by_span(prof, trace, t0_ns, t1_ns):
+    """Seconds between ``t0_ns`` and ``t1_ns`` (Unix ns) in which the
+    device ran nothing, summed by the kind of the port's innermost span
+    open at each instant (``FitTrace.span_at``); ``untraced`` where
+    none was."""
+    busy = sorted((e.start_ns(), e.start_ns() + e.duration_ns())
+                  for e in prof.profiler.kineto_results.events()
+                  if 'CUDA' in str(e.device_type()) and e.duration_ns() > 0)
+    # a gap splits where a span starts or ends
+    edges = sorted({t for r in trace.records for t in (r.start_ns, r.end_ns)})
+    out, prev = {}, t0_ns
+    for s, e in busy + [(t1_ns, t1_ns)]:
+        s, e = max(s, t0_ns), min(e, t1_ns)
+        if s > prev:
+            cuts = [prev] + edges[bisect.bisect_right(edges, prev):
+                                  bisect.bisect_left(edges, s)] + [s]
+            for a, b in zip(cuts, cuts[1:]):
+                rec = trace.span_at((a + b) // 2)
+                kind = 'untraced' if rec is None else rec.kind
+                out[kind] = out.get(kind, 0.0) + (b - a) / 1e9
+        prev = max(prev, e)
+    return out
 
 
 def main():
@@ -118,12 +147,12 @@ def main():
     with contextlib.ExitStack() as stack:
         prof = stack.enter_context(device_profile()) if args.profile \
             else None
-        t0 = time.time()
+        t0, t0_ns = time.time(), time.time_ns()
         mesh.shrink_wrap(pts, sig, method='conjugate_gradient',
                          minimum_edge_length=args.minimum_edge_length)
         if mesh.device.type == 'cuda':
             torch.cuda.synchronize()
-        t_fit = time.time() - t0
+        t_fit, t1_ns = time.time() - t0, time.time_ns()
     r = np.linalg.norm(mesh.vertices, axis=1)
     labels, n_comp = mesh.connected_components()
     print(f"fit: {t_fit:.1f}s  total(e2e): {time.time() - t_all:.1f}s  "
@@ -138,8 +167,9 @@ def main():
             print(f"  component {c}: V={int(m.sum())} "
                   f"r=[{rv.min():.1f},{rv.max():.1f}]", flush=True)
     for rec in mesh.trace.records:
-        print(rec.kind, rec.iteration, f"{rec.wall_time:.1f}s",
-              f"V={rec.n_vertices}", flush=True)
+        if rec.parent is None:
+            print(rec.kind, rec.iteration, f"{rec.wall_time:.1f}s",
+                  f"V={rec.n_vertices}", flush=True)
     print(json.dumps({
         'seed_s': t_seed, 'fit_s': t_fit,
         'V': int(mesh.vertices.shape[0]), 'R_mean': float(r.mean()),
@@ -149,6 +179,8 @@ def main():
                              for rec in mesh.trace.records)),
         'wall': mesh.trace.wall_by_phase(), 'device': str(mesh.device),
         'device_busy_s': device_busy_s(prof) if prof is not None else None,
+        'idle_by_span': idle_by_span(prof, mesh.trace, t0_ns, t1_ns)
+        if prof is not None else None,
         'card': card() if mesh.device.type == 'cuda' else None}),
         flush=True)
     return 0

@@ -18,6 +18,11 @@ from torch_parity_native import load_both_engines
 load_both_engines()
 torch.set_num_threads(1)
 
+# the kinds of the JAX package's trace records; the port's trace holds
+# these among its own spans (the seed, the set-up, the parts of a pass)
+JAX_KINDS = ('cg_block', 'punch_holes', 'remove_necks', 'short_edges',
+             'remesh')
+
 
 def sphere_cloud(R=50.0, n=5000, sigma=3.0, seed=0):
     rng = np.random.default_rng(seed)
@@ -60,7 +65,7 @@ def test_full_shrink_wrap_sphere_both_packages():
     assert tm.point_influence.shape[0] == tm.vertices.shape[0]
     assert tm.S0.shape == tm.vertices.shape
     assert tm.point_dis.min() >= 0
-    assert [r.kind for r in tm.trace.records] == \
+    assert [r.kind for r in tm.trace.records if r.kind in JAX_KINDS] == \
         [r.kind for r in jm.trace.records]
     assert tm._last_corr_method == 'brute'
 

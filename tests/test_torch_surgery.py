@@ -37,6 +37,11 @@ from torch_parity_native import load_both_engines
 load_both_engines()
 torch.set_num_threads(1)
 
+# the kinds of the JAX package's trace records; the port's trace holds
+# these among its own spans (the seed, the set-up, the parts of a pass)
+JAX_KINDS = ('cg_block', 'punch_holes', 'remove_necks', 'short_edges',
+             'remesh')
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
@@ -280,7 +285,8 @@ def test_fit_schedule_matches_jax(max_iter):
     jm = _schedule_fit(JMesh, pts, sigma, max_iter)
     tm = _schedule_fit(TMesh, pts, sigma, max_iter, device='cpu')
     trace_j = [(r.kind, r.iteration) for r in jm.trace.records]
-    trace_t = [(r.kind, r.iteration) for r in tm.trace.records]
+    trace_t = [(r.kind, r.iteration) for r in tm.trace.records
+               if r.kind in JAX_KINDS]
     assert trace_t == trace_j
     assert ('punch_holes', 26) in trace_t
     assert ('remove_necks', 10) in trace_t
