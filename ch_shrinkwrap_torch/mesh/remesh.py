@@ -445,12 +445,14 @@ def remesh(mesh, n=5, target_edge_length=-1.0, l=0.5, n_relax=10,
 
     if use_native:
         from .. import native
-        with tracing.span(mesh, 'engine'):
+        with tracing.span(mesh, 'engine') as rec:
             out = native.remesh(v, f, float(target_edge_length), n_passes=n,
                                 l=l, n_relax=n_relax,
                                 veto_cos=collapse_veto_cos,
                                 veto_min_len=(collapse_veto_min_frac
                                               * float(target_edge_length)))
+            if rec is not None:
+                rec.extra.update(out[2])
         with tracing.span(mesh, 'topology'):
             mesh.set_topology(out[0], out[1])
         # collapse can shrink split-off fragments below a closed

@@ -103,7 +103,7 @@ def get_lib():
         f32p, ctypes.c_int, i32p, ctypes.c_int,
         ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_int,
         ctypes.c_int, f32p, i32p, i32p, i32p, ctypes.c_int, ctypes.c_int,
-        ctypes.c_float, ctypes.c_float]
+        ctypes.c_float, ctypes.c_float, ctypes.POINTER(ctypes.c_int64)]
     lib.remesh_native.restype = None
     lib.build_tables_native.argtypes = [
         i32p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
@@ -169,9 +169,32 @@ def _i32p(a):
     return a.ctypes.data_as(ctypes.POINTER(ctypes.c_int32))
 
 
+# the engine's counts, in the order remesh_native writes them
+REMESH_COUNTS = ('splits', 'collapses', 'flips', 'collapse_attempts',
+                 'flip_attempts', 'collapse_early_rejects',
+                 'flip_early_rejects', 'spills', 'compactions')
+
+
+def remesh_capacity(vertices, faces, target):
+    """Output capacities (vertices, faces) for a remesh of (V, F)
+    toward ``target``, pre-sized from the edge-length ratio: a growth
+    remesh multiplies the vertex count by ~(mean_edge/target)^2, and an
+    undershoot costs a full second remesh run (overflow-retry)."""
+    nv, nf = len(vertices), len(faces)
+    growth = max(1.0, (mean_edge(vertices, faces) / max(target, 1e-6)) ** 2)
+    return (int(nv * max(3.0, 2.0 * growth) + 1024),
+            int(nf * max(3.0, 2.0 * growth) + 2048))
+
+
 def remesh(vertices, faces, target, n_passes=5, l=0.5, n_relax=0,
            max_valence=20, veto_cos=None, veto_min_len=None):
-    """Native isotropic remesh; returns (V, F).
+    """Native isotropic remesh; returns (V, F, counts).
+
+    ``counts`` maps each name of ``REMESH_COUNTS`` to the engine's
+    count: splits, collapses and flips landed, collapse and flip
+    attempts, the attempts its result and valence guards rejected
+    before the edge and link walks, the incidence lists that outgrew
+    their slab block, and the compactions between passes.
 
     ``veto_cos`` (opt-in): skip collapsing edges whose endpoint-normal
     dot falls below it while the edge is longer than ``veto_min_len``
@@ -184,14 +207,8 @@ def remesh(vertices, faces, target, n_passes=5, l=0.5, n_relax=0,
     v = np.ascontiguousarray(vertices, dtype=np.float32)
     f = np.ascontiguousarray(faces, dtype=np.int32)
     nv, nf = len(v), len(f)
-    # pre-size output capacity from the edge-length ratio: a growth
-    # remesh multiplies the vertex count by ~(mean_edge/target)^2, and
-    # an undershoot costs a full second remesh run (overflow-retry)
-    e = v[f[:, 0]] - v[f[:, 1]]
-    mean_edge = float(np.sqrt((e * e).sum(1)).mean()) if nf else 1.0
-    growth = max(1.0, (mean_edge / max(target, 1e-6)) ** 2)
-    v_cap = int(nv * max(3.0, 2.0 * growth) + 1024)
-    f_cap = int(nf * max(3.0, 2.0 * growth) + 2048)
+    v_cap, f_cap = remesh_capacity(v, f, target)
+    counts = np.zeros(len(REMESH_COUNTS), np.int64)
     for _ in range(3):
         v_out = np.empty((v_cap, 3), np.float32)
         f_out = np.empty((f_cap, 3), np.int32)
@@ -205,9 +222,12 @@ def remesh(vertices, faces, target, n_passes=5, l=0.5, n_relax=0,
                           ctypes.c_float(2.0 if veto_cos is None
                                          else float(veto_cos)),
                           ctypes.c_float(0.0 if veto_min_len is None
-                                         else float(veto_min_len) ** 2))
+                                         else float(veto_min_len) ** 2),
+                          counts.ctypes.data_as(
+                              ctypes.POINTER(ctypes.c_int64)))
         if nv_out[0] >= 0:
-            return (v_out[:nv_out[0]].copy(), f_out[:nf_out[0]].copy())
+            return (v_out[:nv_out[0]].copy(), f_out[:nf_out[0]].copy(),
+                    dict(zip(REMESH_COUNTS, counts.tolist())))
         v_cap = int(-nv_out[0] * 1.3) + 1024
         f_cap = int(-nf_out[0] * 1.3) + 2048
     raise RuntimeError('native remesh: output overflowed its capacity '

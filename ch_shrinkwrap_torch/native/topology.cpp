@@ -15,14 +15,13 @@
 
 #include <cstdint>
 #include <cstring>
-#include <cstdio>
 #include <cstdlib>
 #include <cmath>
-#include <chrono>
 #include <vector>
 #include <algorithm>
 #include <unordered_map>
 #include <array>
+#include <new>
 
 namespace {
 
@@ -39,19 +38,62 @@ struct Vec3 {
     float norm() const { return std::sqrt(norm2()); }
 };
 
-// Edit-mesh: adjacency kept as per-vertex vectors of neighbor vertices
-// and incident faces; faces as index triples with a live flag.
+// 64-byte aligned allocation: each vertex block of the incidence slab
+// starts on a cache line
+template <class T>
+struct LineAlloc {
+    using value_type = T;
+    LineAlloc() = default;
+    template <class U> LineAlloc(const LineAlloc<U>&) {}
+    T* allocate(std::size_t n) {
+        void* p = nullptr;
+        if (posix_memalign(&p, 64, n * sizeof(T)) != 0)
+            throw std::bad_alloc();
+        return static_cast<T*>(p);
+    }
+    void deallocate(T* p, std::size_t) { std::free(p); }
+    template <class U>
+    bool operator==(const LineAlloc<U>&) const { return true; }
+    template <class U>
+    bool operator!=(const LineAlloc<U>&) const { return false; }
+};
+
+// A vertex's valence (live faces it is a corner of) and a lower bound
+// on its neighbours' valences, side by side for the flip pass's guard
+struct Valence {
+    int32_t val, nbmin;
+};
+
+// Edit-mesh: faces as index triples with a live flag, and each vertex's
+// incident live faces in one flat slab.  Vertex v owns the block
+// inc_[v*B, (v+1)*B): its count at [0], then up to B-1 face ids in list
+// order, so a walk over its list reads one block (B = 16: one cache
+// line).  A list that outgrows its block moves to spill_ (block[1]
+// then holds its offset there, spill_[offset] the capacity) and moves
+// back when it fits again.  A dying face leaves its vertices' lists,
+// the rest keeping their order, so no walk reads face_live.
+//
+// The lists' order decides every greedy choice (the order ring()
+// yields neighbours, which face edge_faces() returns first), so each
+// edit appends and removes exactly as the per-vertex vectors with
+// tombstones it replaces did: a list here is that vector's live
+// entries, in that vector's order.
 struct EditMesh {
     std::vector<Vec3> pos;
     std::vector<std::array<int32_t, 3>> faces;
     std::vector<uint8_t> face_live;
     std::vector<uint8_t> vert_live;
-    std::vector<std::vector<int32_t>> vfaces;   // faces incident to vertex
+    int B = 16;
+    std::vector<int32_t, LineAlloc<int32_t>> inc_;
+    std::vector<int32_t> spill_;
+    long n_spill = 0;               // lists moved out of their block
     // epoch-stamped vertex marks: O(deg) one-ring dedup / set
     // intersection instead of the O(deg^2) std::find scans that
     // dominated the collapse pass (60% of a growth remesh)
     mutable std::vector<uint32_t> mark_;
     mutable uint32_t epoch_ = 0;
+    std::vector<int32_t> snap_;     // collapse: b's list while rewritten
+    std::vector<Vec3> target_;      // relax
 
     inline uint32_t new_epoch() const {
         if (mark_.size() < pos.size())
@@ -63,46 +105,127 @@ struct EditMesh {
         return epoch_;
     }
 
-    void build(const float* verts, int nv, const int32_t* f, int nf) {
+    // v_cap, f_cap: the caller's output capacities, which bound the
+    // vertex and face slots a remesh makes between compactions (more
+    // grow the arrays as before)
+    void build(const float* verts, int nv, const int32_t* f, int nf,
+               int v_cap, int f_cap) {
+        size_t vres = std::max(nv, v_cap), fres = std::max(nf, f_cap);
+        pos.reserve(vres);
+        vert_live.reserve(vres);
+        faces.reserve(fres);
+        face_live.reserve(fres);
+        mark_.assign(vres, 0);
         pos.resize(nv);
         std::memcpy(pos.data(), verts, sizeof(float) * 3 * nv);
         faces.resize(nf);
         face_live.assign(nf, 1);
         vert_live.assign(nv, 1);
-        vfaces.assign(nv, {});
+        std::vector<int32_t> deg(nv, 0);
         for (int i = 0; i < nf; ++i) {
             faces[i] = {f[3 * i], f[3 * i + 1], f[3 * i + 2]};
-            for (int k = 0; k < 3; ++k) vfaces[faces[i][k]].push_back(i);
+            for (int k = 0; k < 3; ++k) ++deg[faces[i][k]];
         }
+        // a block holds half again the input's largest list (a growth
+        // pass lengthens lists until its collapses and flips even them
+        // out); a remeshed surface's lists reach 8, so B is one line
+        int maxdeg = 0;
+        for (int d : deg) maxdeg = std::max(maxdeg, d);
+        B = 16;
+        while (2 * (B - 1) < 3 * maxdeg) B += 16;
+        inc_.reserve(vres * B);
+        inc_.assign((size_t)nv * B, 0);
+        for (int i = 0; i < nf; ++i)
+            for (int k = 0; k < 3; ++k) push(faces[i][k], i);
     }
 
-    inline int valence(int v) const { return (int)vfaces[v].size(); }
+    // v's incident live faces: their count in n, their ids at the
+    // pointer returned (valid until the next list edit)
+    inline const int32_t* inc(int v, int& n) const {
+        const int32_t* blk = inc_.data() + (size_t)v * B;
+        n = blk[0];
+        return n < B ? blk + 1 : spill_.data() + blk[1] + 1;
+    }
 
-    // collect one-ring vertices of v into out; returns count
-    int ring(int v, std::vector<int32_t>& out) const {
-        out.clear();
-        uint32_t e = new_epoch();
-        mark_[v] = e;                    // excludes v itself
-        for (int fi : vfaces[v]) {
-            if (!face_live[fi]) continue;
-            for (int k = 0; k < 3; ++k) {
-                int u = faces[fi][k];
-                if (mark_[u] != e) {
-                    mark_[u] = e;
-                    out.push_back(u);
-                }
+    void push(int v, int32_t fi) {
+        int32_t* blk = inc_.data() + (size_t)v * B;
+        int n = blk[0];
+        if (n < B - 1) {
+            blk[1 + n] = fi;
+            blk[0] = n + 1;
+            return;
+        }
+        int32_t off;
+        if (n == B - 1) {               // the block is full: move out
+            off = (int32_t)spill_.size();
+            spill_.resize(off + 1 + 2 * B);
+            spill_[off] = 2 * B;
+            std::memcpy(&spill_[off + 1], blk + 1, sizeof(int32_t) * n);
+            blk[1] = off;
+            ++n_spill;
+        } else {
+            off = blk[1];
+            if (n == spill_[off]) {     // the spill block is full: double
+                int32_t grown = (int32_t)spill_.size();
+                int cap = 2 * spill_[off];
+                spill_.resize(grown + 1 + cap);
+                spill_[grown] = cap;
+                std::memcpy(&spill_[grown + 1], &spill_[off + 1],
+                            sizeof(int32_t) * n);
+                off = blk[1] = grown;
             }
         }
-        return (int)out.size();
+        spill_[off + 1 + n] = fi;
+        blk[0] = n + 1;
+    }
+
+    // drop every entry fi from v's list, keeping the others' order
+    void erase(int v, int32_t fi) {
+        int32_t* blk = inc_.data() + (size_t)v * B;
+        int n = blk[0];
+        int32_t* p = n < B ? blk + 1 : &spill_[blk[1] + 1];
+        int w = 0;
+        for (int i = 0; i < n; ++i) {
+            p[w] = p[i];
+            w += p[i] != fi;
+        }
+        if (n >= B && w < B)            // fits its block again
+            std::memcpy(blk + 1, p, sizeof(int32_t) * w);
+        blk[0] = w;
+    }
+
+    void clear_list(int v) { inc_[(size_t)v * B] = 0; }
+
+    // collect one-ring vertices of v into out, in the order their
+    // faces list them; returns count
+    int ring(int v, std::vector<int32_t>& out) const {
+        uint32_t e = new_epoch();
+        mark_[v] = e;                    // excludes v itself
+        int n;
+        const int32_t* L = inc(v, n);
+        out.resize(3 * (size_t)n);
+        int32_t* o = out.data();
+        int k = 0;
+        for (int i = 0; i < n; ++i) {
+            const auto& F = faces[L[i]];
+            for (int c = 0; c < 3; ++c) {
+                int u = F[c];
+                o[k] = u;                // kept only if not yet marked
+                k += mark_[u] != e;
+                mark_[u] = e;
+            }
+        }
+        out.resize(k);
+        return k;
     }
 
     // does any live face contain both a and b?  (early-exit variant
-    // of edge_faces for existence-only callers — the flip pass's c-d
-    // test walks the full incidence list otherwise)
+    // of edge_faces for existence-only callers)
     bool has_edge(int a, int b) const {
-        for (int fi : vfaces[a]) {
-            if (!face_live[fi]) continue;
-            const auto& F = faces[fi];
+        int n;
+        const int32_t* L = inc(a, n);
+        for (int i = 0; i < n; ++i) {
+            const auto& F = faces[L[i]];
             if (F[0] == b || F[1] == b || F[2] == b) return true;
         }
         return false;
@@ -110,24 +233,26 @@ struct EditMesh {
 
     // number of live faces containing both a and b, filling them
     int edge_faces(int a, int b, int out[2]) const {
-        int n = 0;
-        for (int fi : vfaces[a]) {
-            if (!face_live[fi]) continue;
-            const auto& F = faces[fi];
-            if (F[0] == b || F[1] == b || F[2] == b) {
-                if (n < 2) out[n] = fi;
-                ++n;
-            }
+        int c = 0, n;
+        int32_t o[3];                   // o[2]: a slot for the rest
+        const int32_t* L = inc(a, n);
+        for (int i = 0; i < n; ++i) {
+            const auto& F = faces[L[i]];
+            o[std::min(c, 2)] = L[i];   // kept only if the face has b
+            c += (F[0] == b) | (F[1] == b) | (F[2] == b);
         }
-        return n;
+        out[0] = o[0];
+        out[1] = o[1];
+        return c;
     }
 
     // area-weighted (unnormalized) vertex normal over live faces
     Vec3 vnormal(int v) const {
-        Vec3 n{0, 0, 0};
-        for (int fi : vfaces[v])
-            if (face_live[fi]) n = n + face_normal(fi);
-        return n;
+        Vec3 nrm{0, 0, 0};
+        int n;
+        const int32_t* L = inc(v, n);
+        for (int i = 0; i < n; ++i) nrm = nrm + face_normal(L[i]);
+        return nrm;
     }
 
     Vec3 face_normal(int fi) const {
@@ -145,11 +270,18 @@ struct EditMesh {
         return F[0] == F[1] || F[1] == F[2] || F[0] == F[2];
     }
 
+    // a live face is listed only by vertices it holds, so leaving
+    // those lists leaves every list
     void kill_face(int fi) {
         face_live[fi] = 0;
+        const auto F = faces[fi];
+        erase(F[0], fi);
+        if (F[1] != F[0]) erase(F[1], fi);
+        if (F[2] != F[0] && F[2] != F[1]) erase(F[2], fi);
     }
 
-    // Collapse edge (a, b): b merges into a at the midpoint.
+    // Collapse edge (a, b): b merges into a at the midpoint.  ra is
+    // ring(a), which the caller holds.
     // Guards: both interior (exactly 2 shared faces), link condition
     // (|ring(a) & ring(b)| == 2), valence cap, fold-over normal test,
     // and (high2 > 0) no resulting edge longer than sqrt(high2) — the
@@ -157,49 +289,50 @@ struct EditMesh {
     // over-long edges that the next split pass re-splits, and the
     // split/collapse churn costs ~75% of a growth remesh (measured:
     // 350k splits + 340k collapses per pass with stable output).
-    mutable long fail_ef = 0, fail_link = 0, fail_val = 0,
-                 fail_high2 = 0, fail_fold = 0;
-    bool collapse(int a, int b, int max_valence, std::vector<int32_t>& ra,
-                  std::vector<int32_t>& rb, float high2 = -1.f,
-                  const std::vector<int32_t>* ra_pre = nullptr) {
-        // Guard REORDER, not a new guard: the Botsch-Kobbelt result
-        // test rejects 96%+ of the growth remesh's attempts (measured
-        // fail census: high2 156-182k vs link <500, fold <200 per
-        // pass), and the caller already holds ring(a) — check it
-        // BEFORE paying the edge_faces walk + ring(b) + link test.
-        // Identical accept/reject set: the same condition is (re-)
-        // checked below; no state is written before any reject.
-        if (high2 > 0.f && ra_pre) {
-            Vec3 mid_pre = (pos[a] + pos[b]) * 0.5f;
-            for (int u : *ra_pre)
-                if (u != b && (pos[u] - mid_pre).norm2() > high2) {
-                    ++fail_high2;
-                    return false;
+    // The guards are pure tests and none writes state before a reject,
+    // so their order changes no outcome: the result guard over ring(a)
+    // comes first, since it rejects 96%+ of a growth remesh's attempts
+    // (high2 156-182k vs link <500, fold <200 per pass) and needs no
+    // walk.  *early is set when it rejects.
+    bool collapse(int a, int b, int max_valence,
+                  const std::vector<int32_t>& ra, std::vector<int32_t>& rb,
+                  float high2, bool* early) {
+        *early = false;
+        Vec3 mid = (pos[a] + pos[b]) * 0.5f;
+        if (high2 > 0.f) {
+            bool far = false;
+            for (int u : ra)
+                far |= (u != b) & ((pos[u] - mid).norm2() > high2);
+            if (far) {
+                *early = true;
+                return false;
+            }
+            // the same guard over ring(b), read straight off b's faces
+            // (ring(b) is their corners but b)
+            int n;
+            const int32_t* L = inc(b, n);
+            for (int i = 0; i < n; ++i) {
+                const auto& F = faces[L[i]];
+                for (int k = 0; k < 3; ++k) {
+                    int u = F[k];
+                    far |= (u != a) & (u != b)
+                           & ((pos[u] - mid).norm2() > high2);
                 }
+            }
+            if (far) {
+                *early = true;
+                return false;
+            }
         }
         int ef[2];
-        if (edge_faces(a, b, ef) != 2) { ++fail_ef; return false; }
-        // ra_pre: caller-precomputed ring(a) — the greedy collapse
-        // loop attempts every short neighbor of a fixed pivot, and
-        // failed attempts leave ring(a) unchanged, so recomputing it
-        // per attempt is pure waste
-        if (ra_pre == nullptr) ring(a, ra);
-        const std::vector<int32_t>& rra = ra_pre ? *ra_pre : ra;
+        if (edge_faces(a, b, ef) != 2) return false;
         ring(b, rb);
         uint32_t e = new_epoch();
         for (int u : rb) mark_[u] = e;
         int common = 0;
-        for (int u : rra) common += (mark_[u] == e);
-        if (common != 2) { ++fail_link; return false; }
-        if ((int)(rra.size() + rb.size()) - 4 > max_valence) { ++fail_val; return false; }
-
-        Vec3 mid = (pos[a] + pos[b]) * 0.5f;
-        if (high2 > 0.f) {
-            for (int u : rra)
-                if (u != b && (pos[u] - mid).norm2() > high2) { ++fail_high2; return false; }
-            for (int u : rb)
-                if (u != a && (pos[u] - mid).norm2() > high2) { ++fail_high2; return false; }
-        }
+        for (int u : ra) common += (mark_[u] == e);
+        if (common != 2) return false;
+        if ((int)(ra.size() + rb.size()) - 4 > max_valence) return false;
 
         // fold-over guard: surviving faces of a and b must not flip
         Vec3 old_a = pos[a], old_b = pos[b];
@@ -207,8 +340,11 @@ struct EditMesh {
         pos[b] = mid;
         for (int pass = 0; pass < 2; ++pass) {
             int v = pass == 0 ? a : b;
-            for (int fi : vfaces[v]) {
-                if (!face_live[fi] || fi == ef[0] || fi == ef[1]) continue;
+            int n;
+            const int32_t* L = inc(v, n);
+            for (int i = 0; i < n; ++i) {
+                int fi = L[i];
+                if (fi == ef[0] || fi == ef[1]) continue;
                 const auto& F = faces[fi];
                 // normal before (with old positions) vs after
                 Vec3 p0 = pos[F[0]], p1 = pos[F[1]], p2 = pos[F[2]];
@@ -223,7 +359,6 @@ struct EditMesh {
                 if (n_new.dot(n_old) <= 0.f) {
                     pos[a] = old_a;
                     pos[b] = old_b;
-                    ++fail_fold;
                     return false;
                 }
             }
@@ -232,19 +367,17 @@ struct EditMesh {
         // apply: faces of b -> a; shared faces die
         kill_face(ef[0]);
         kill_face(ef[1]);
-        for (int fi : vfaces[b]) {
-            if (!face_live[fi]) continue;
+        int n;
+        const int32_t* L = inc(b, n);
+        snap_.assign(L, L + n);
+        for (int fi : snap_) {
+            if (!face_live[fi]) continue;   // a repeated entry killed
             replace_vertex(fi, b, a);
             if (face_degenerate(fi)) kill_face(fi);
-            else vfaces[a].push_back(fi);
+            else push(a, fi);
         }
-        vfaces[b].clear();
+        clear_list(b);
         vert_live[b] = 0;
-        // prune dead faces from a's list
-        auto& fa = vfaces[a];
-        fa.erase(std::remove_if(fa.begin(), fa.end(),
-                                [&](int fi) { return !face_live[fi]; }),
-                 fa.end());
         return true;
     }
 
@@ -261,45 +394,34 @@ struct EditMesh {
         int m = (int)pos.size();
         pos.push_back((pos[a] + pos[b]) * 0.5f);
         vert_live.push_back(1);
-        vfaces.push_back({});
+        inc_.resize(inc_.size() + B, 0);
         for (int e = 0; e < n; ++e) {
             int fi = ef[e];
             auto F = faces[fi];
-            // find corner c (not a, not b) preserving winding
-            // face (x, y, z); edge a-b appears as consecutive pair
+            // face (x, y, z) keeps its winding: fi takes m for b, the
+            // new face takes m for a
             int ia = F[0] == a ? 0 : F[1] == a ? 1 : 2;
-            // new faces: replace b with m in fi; add (m, b side) face
-            // find index of b
-            int ib = F[0] == b ? 0 : F[1] == b ? 1 : 2;
-            (void)ia;
-            // face1: fi with b -> m
             replace_vertex(fi, b, m);
-            vfaces[m].push_back(fi);
-            // face2: original with a -> m
+            push(m, fi);
             std::array<int32_t, 3> f2 = F;
             f2[ia] = m;
-            (void)ib;
             int nf = (int)faces.size();
             faces.push_back(f2);
             face_live.push_back(1);
-            vfaces[m].push_back(nf);
+            push(m, nf);
             for (int k = 0; k < 3; ++k)
-                if (f2[k] != m) vfaces[f2[k]].push_back(nf);
+                if (f2[k] != m) push(f2[k], nf);
             // b keeps face2 via the loop above; remove fi from b's list
-            auto& fb = vfaces[b];
-            fb.erase(std::remove(fb.begin(), fb.end(), fi), fb.end());
+            erase(b, fi);
         }
         return true;
     }
 
     // Flip the edge (a, b) shared by exactly two faces if it improves
-    // valence regularity and passes geometry guards.  ``val``
-    // (optional): caller-maintained live-valence array — saves the 4
-    // O(deg) vfaces walks per candidate that dominated converged flip
-    // passes; updated in place when the flip lands (a/b lose one
-    // incident face pair, c/d gain).
-    bool flip(int a, int b, std::vector<int32_t>& scratch,
-              std::vector<int32_t>* val = nullptr) {
+    // valence regularity and passes geometry guards.  ``q``: the
+    // caller-maintained valences, updated in place when the flip lands
+    // (a/b lose one incident face pair, c/d gain).
+    bool flip(int a, int b, Valence* q) {
         int ef[2];
         if (edge_faces(a, b, ef) != 2) return false;
         int f1 = ef[0], f2 = ef[1];
@@ -312,10 +434,7 @@ struct EditMesh {
         }
         if (c < 0 || d < 0 || c == d) return false;
 
-        int va = val ? (*val)[a] : valence(a),
-            vb = val ? (*val)[b] : valence(b),
-            vc = val ? (*val)[c] : valence(c),
-            vd = val ? (*val)[d] : valence(d);
+        int va = q[a].val, vb = q[b].val, vc = q[c].val, vd = q[d].val;
         auto dev = [](int v) { return (v - 6) * (v - 6); };
         int before = dev(va) + dev(vb) + dev(vc) + dev(vd);
         int after = dev(va - 1) + dev(vb - 1) + dev(vc + 1) + dev(vd + 1);
@@ -344,81 +463,65 @@ struct EditMesh {
         // detach old faces from vertex lists
         for (int e = 0; e < 2; ++e) {
             int fi = ef[e];
-            for (int k = 0; k < 3; ++k) {
-                auto& lst = vfaces[faces[fi][k]];
-                lst.erase(std::remove(lst.begin(), lst.end(), fi),
-                          lst.end());
-            }
+            for (int k = 0; k < 3; ++k) erase(faces[fi][k], fi);
         }
         faces[f1] = nf1;
         faces[f2] = nf2;
         for (int k = 0; k < 3; ++k) {
-            vfaces[nf1[k]].push_back(f1);
-            vfaces[nf2[k]].push_back(f2);
+            push(nf1[k], f1);
+            push(nf2[k], f2);
         }
-        if (val) {
-            --(*val)[a]; --(*val)[b];
-            ++(*val)[c]; ++(*val)[d];
-        }
-        (void)scratch;
+        --q[a].val; --q[b].val;
+        ++q[c].val; ++q[d].val;
         return true;
     }
 
     void relax(float l, int n_iter) {
-        std::vector<int32_t> r;
+        target_.resize(pos.size());
         for (int it = 0; it < n_iter; ++it) {
-            std::vector<Vec3> target(pos.size());
             for (size_t v = 0; v < pos.size(); ++v) {
-                if (!vert_live[v] || vfaces[v].empty()) continue;
+                int n;
+                const int32_t* L = inc((int)v, n);
+                if (!vert_live[v] || n == 0) continue;
                 Vec3 acc{0, 0, 0};
                 float wsum = 0.f;
                 Vec3 nrm{0, 0, 0};
-                for (int fi : vfaces[v]) {
-                    if (!face_live[fi]) continue;
-                    const auto& F = faces[fi];
+                for (int i = 0; i < n; ++i) {
+                    const auto& F = faces[L[i]];
                     Vec3 c = (pos[F[0]] + pos[F[1]] + pos[F[2]])
                              * (1.f / 3.f);
-                    Vec3 n = face_normal(fi);
-                    float area = 0.5f * n.norm();
+                    Vec3 fn = face_normal(L[i]);
+                    float area = 0.5f * fn.norm();
                     acc = acc + c * area;
                     wsum += area;
-                    nrm = nrm + n;
+                    nrm = nrm + fn;
                 }
-                if (wsum <= 0.f) { target[v] = pos[v]; continue; }
+                if (wsum <= 0.f) { target_[v] = pos[v]; continue; }
                 Vec3 t = acc * (1.f / wsum);
                 float nn = nrm.norm();
                 if (nn > 1e-12f) {
                     nrm = nrm * (1.f / nn);
                     Vec3 delta = t - pos[v];
                     delta = delta - nrm * delta.dot(nrm);
-                    target[v] = pos[v] + delta * l;
+                    target_[v] = pos[v] + delta * l;
                 } else {
-                    target[v] = pos[v];
+                    target_[v] = pos[v];
                 }
             }
             for (size_t v = 0; v < pos.size(); ++v)
-                if (vert_live[v] && !vfaces[v].empty()) pos[v] = target[v];
+                if (vert_live[v] && inc_[v * B] != 0) pos[v] = target_[v];
         }
     }
 
-    // in-place tombstone removal: rebuild pos/faces/vfaces from the
-    // live set (indices are renumbered; callers hold no indices across
-    // passes, so this is safe between passes)
-    // vremap_out (optional): old->new vertex ids (-1 = dropped);
-    // fmap_out (optional): per NEW face, the OLD face id — so callers
-    // maintaining per-vertex/per-face side state (the remesh dirty-set)
-    // can carry it across the compaction
-    void rebuild_compact(std::vector<int32_t>* vremap_out = nullptr,
-                         std::vector<int32_t>* fmap_out = nullptr) {
+    // in-place tombstone removal: rebuild pos/faces and the lists from
+    // the live set (indices are renumbered; callers hold no indices
+    // across passes, so this is safe between passes)
+    void rebuild_compact() {
         std::vector<int32_t> remap(pos.size(), -1);
         std::vector<Vec3> new_pos;
-        new_pos.reserve(pos.size());
+        new_pos.reserve(pos.capacity());
         std::vector<std::array<int32_t, 3>> new_faces;
-        new_faces.reserve(faces.size());
-        if (fmap_out) {
-            fmap_out->clear();
-            fmap_out->reserve(faces.size());
-        }
+        new_faces.reserve(faces.capacity());
         for (size_t f = 0; f < faces.size(); ++f) {
             if (!face_live[f]) continue;
             std::array<int32_t, 3> F;
@@ -430,18 +533,17 @@ struct EditMesh {
                 }
                 F[k] = remap[u];
             }
-            if (fmap_out) fmap_out->push_back((int32_t)f);
             new_faces.push_back(F);
         }
-        if (vremap_out) *vremap_out = remap;
         pos.swap(new_pos);
         faces.swap(new_faces);
         face_live.assign(faces.size(), 1);
         vert_live.assign(pos.size(), 1);
-        vfaces.assign(pos.size(), {});
+        inc_.resize(pos.size() * B);
+        for (size_t v = 0; v < pos.size(); ++v) inc_[v * B] = 0;
+        spill_.clear();
         for (size_t f = 0; f < faces.size(); ++f)
-            for (int k = 0; k < 3; ++k)
-                vfaces[faces[f][k]].push_back((int32_t)f);
+            for (int k = 0; k < 3; ++k) push(faces[f][k], (int32_t)f);
     }
 
     // write back compacted arrays; returns (nv_out, nf_out)
@@ -499,20 +601,27 @@ extern "C" {
 // carry strongly divergent normals, and collapsing them is what
 // pinches a well-supported junction apart (TwoToruses low-cw regime,
 // BASELINE.md round 4).  veto_cos > 1 disables (default).
+// counts (9 entries) returns, in order: splits, collapses and flips
+// landed; collapse and flip attempts; collapse and flip attempts
+// rejected by the result and valence guards before the edge and link
+// walks; lists that outgrew their slab block; compactions.
 void remesh_native(const float* verts_in, int nv, const int32_t* faces_in,
                    int nf, float target, int n_passes, float l,
                    int n_relax, int max_valence,
                    float* verts_out, int32_t* faces_out,
                    int32_t* nv_out, int32_t* nf_out,
                    int v_cap, int f_cap,
-                   float veto_cos, float veto_min_len2) {
+                   float veto_cos, float veto_min_len2,
+                   int64_t* counts) {
     EditMesh m;
-    m.build(verts_in, nv, faces_in, nf);
+    m.build(verts_in, nv, faces_in, nf, v_cap, f_cap);
     const float high2 = (4.f / 3.f * target) * (4.f / 3.f * target);
     const float low2 = (4.f / 5.f * target) * (4.f / 5.f * target);
-    std::vector<int32_t> ra, rb, ring;
-    const bool dbg = std::getenv("CSW_REMESH_DEBUG") != nullptr;
-    using clk = std::chrono::steady_clock;
+    std::vector<int32_t> rb, ring;
+    rb.reserve(64);
+    ring.reserve(64);
+    int64_t n_split = 0, n_coll = 0, n_flip = 0, n_att = 0, n_fatt = 0,
+            n_early = 0, n_fearly = 0, n_compact = 0;
 
     // ---- split-scan skipping (behavior-identical) ----
     // A face can only carry a NEW over-long edge if one of its
@@ -523,85 +632,67 @@ void remesh_native(const float* verts_in, int nv, const int32_t* faces_in,
     // the kept vertex; split: the new midpoint — every rewritten face
     // contains it; flip: all four vertices of the rewired quad), and
     // passes >= 1 skip faces whose three stamps predate the previous
-    // scan.  Identical output asserted in
-    // tests/test_mesh.py::test_remesh_dirty_set_identical;
-    // CSW_REMESH_NO_DIRTY=1 disables.
+    // scan.
     //
-    // NOTE a committed negative (round 5): the stronger attempt-level
-    // fail-memo (skip collapse/flip attempts whose 2-ring is
-    // unchanged since they last failed, with ring-dilated marks) was
-    // built, proven output-identical, and MEASURED SLOWER — a growth
-    // remesh churns globally (~25k edits/pass dilate over the whole
-    // mesh), so <4% of attempts were skippable while the marking
-    // cost ~35% of the pass.  The wins here are this scan skip plus
-    // the high2 guard reorder in collapse().
-    const bool no_dirty = std::getenv("CSW_REMESH_NO_DIRTY") != nullptr;
-    const bool dirty_check = std::getenv("CSW_REMESH_DIRTY_CHECK") != nullptr;
+    // NOTE a committed negative: the stronger attempt-level fail-memo
+    // (skip collapse/flip attempts whose 2-ring is unchanged since
+    // they last failed, with ring-dilated marks) was built, proven
+    // output-identical, and MEASURED SLOWER — a growth remesh churns
+    // globally (~25k edits/pass dilate over the whole mesh), so <4% of
+    // attempts were skippable while the marking cost ~35% of the pass.
     uint64_t seq = 1;
-    std::vector<uint64_t> touched(m.pos.size(), 1);
+    std::vector<uint64_t> touched;
+    touched.reserve(m.pos.capacity());
+    touched.assign(m.pos.size(), 1);
     uint64_t prev_split_scan_seq = 0;
     auto stamp = [&](int v) {
         if ((size_t)v < touched.size()) touched[v] = seq;
         else touched.resize(m.pos.size(), seq);
     };
+    std::vector<uint8_t> short_cand, irr2;
+    std::vector<int32_t> cands;
+    std::vector<Valence> vq;
+    cands.reserve(m.pos.capacity());
+    short_cand.reserve(m.pos.capacity());
+    irr2.reserve(m.pos.capacity());
+    vq.reserve(m.pos.capacity());
 
     for (int pass = 0; pass < n_passes; ++pass) {
         // split pass: iterate faces, split the longest over-long edge
-        auto t0 = clk::now();
-        long n_edit = 0, n_split = 0, n_coll = 0;
+        long n_edit = 0;
         const uint64_t scan_from = prev_split_scan_seq;
         prev_split_scan_seq = seq;
         size_t nf_now = m.faces.size();
         for (size_t fi = 0; fi < nf_now; ++fi) {
             if (!m.face_live[fi]) continue;
-            if (!no_dirty && scan_from > 0) {
+            if (scan_from > 0) {
                 const auto& F = m.faces[fi];
                 // endpoint positions unchanged since the last split
                 // scan => no edge of this face became long
-                if (touched[F[0]] < scan_from && touched[F[1]] < scan_from
-                        && touched[F[2]] < scan_from) {
-                    if (dirty_check) {
-                        for (int k = 0; k < 3; ++k) {
-                            int a = F[k], b = F[(k + 1) % 3];
-                            if (a < b && (m.pos[a] - m.pos[b]).norm2()
-                                    > high2)
-                                std::fprintf(stderr,
-                                    "SKIP-VIOLATION pass %d face %zu "
-                                    "edge (%d,%d) stamps %llu %llu %llu "
-                                    "scan_from %llu\n", pass, fi, a, b,
-                                    (unsigned long long)touched[F[0]],
-                                    (unsigned long long)touched[F[1]],
-                                    (unsigned long long)touched[F[2]],
-                                    (unsigned long long)scan_from);
-                        }
-                    }
+                if ((touched[F[0]] < scan_from) & (touched[F[1]] < scan_from)
+                        & (touched[F[2]] < scan_from))
                     continue;
-                }
             }
             for (int k = 0; k < 3; ++k) {
                 int a = m.faces[fi][k];
                 int b = m.faces[fi][(k + 1) % 3];
-                if (a < b &&
-                    (m.pos[a] - m.pos[b]).norm2() > high2) {
+                if ((a < b) & ((m.pos[a] - m.pos[b]).norm2() > high2)) {
                     bool did = m.split(a, b);
                     ++n_edit;
-                    ++n_split;
-                    if (!no_dirty) {
-                        ++seq;
-                        if (did) {
-                            stamp((int)m.pos.size() - 1);
-                        } else {
-                            // no-op split (nonmanifold transient):
-                            // keep the edge dirty so the next pass
-                            // retries it like the full scan would
-                            stamp(a);
-                            stamp(b);
-                        }
+                    ++seq;
+                    if (did) {
+                        ++n_split;
+                        stamp((int)m.pos.size() - 1);
+                    } else {
+                        // no-op split (nonmanifold transient):
+                        // keep the edge dirty so the next pass
+                        // retries it like the full scan would
+                        stamp(a);
+                        stamp(b);
                     }
                 }
             }
         }
-        auto t1 = clk::now();
 
         // collapse pass: sequential greedy over vertices' short edges
         // (result-guarded: may not create an edge above 4/3 target).
@@ -613,33 +704,38 @@ void remesh_native(const float* verts_in, int nv, const int32_t* faces_in,
         // fit's incremental growth remeshes (few shorts, many splits)
         // skip the ~V ring() walks that dominated the pass (measured
         // 60-70% of remesh wall-clock).
-        std::vector<uint8_t> short_cand(m.pos.size(), 0);
+        short_cand.assign(m.pos.size(), 0);
         nf_now = m.faces.size();
         for (size_t fi = 0; fi < nf_now; ++fi) {
             if (!m.face_live[fi]) continue;
+            const auto& F = m.faces[fi];
             for (int k = 0; k < 3; ++k) {
-                int a = m.faces[fi][k];
-                int b = m.faces[fi][(k + 1) % 3];
-                if (a < b && (m.pos[a] - m.pos[b]).norm2() < low2) {
-                    short_cand[a] = 1;
-                    short_cand[b] = 1;
-                }
+                int a = F[k];
+                int b = F[(k + 1) % 3];
+                uint8_t s = (a < b) & ((m.pos[a] - m.pos[b]).norm2() < low2);
+                short_cand[a] |= s;
+                short_cand[b] |= s;
             }
         }
-        long n_cand = 0, n_att = 0;
+        cands.resize(m.pos.size());
+        size_t n_cands = 0;
         for (size_t v = 0; v < m.pos.size(); ++v) {
-            if (!m.vert_live[v] || !short_cand[v]) continue;
-            ++n_cand;
+            cands[n_cands] = (int32_t)v;
+            n_cands += short_cand[v] & m.vert_live[v];
+        }
+        for (size_t ci = 0; ci < n_cands; ++ci) {
+            const int v = cands[ci];
+            if (!m.vert_live[v]) continue;     // collapsed into another
             bool again = true;
             int guard = 8;
             while (again && guard-- > 0) {
                 again = false;
-                m.ring((int)v, ring);
+                m.ring(v, ring);
                 for (int u : ring) {
                     float el2 = (m.pos[v] - m.pos[u]).norm2();
                     if (el2 < low2) {
                         if (veto_cos <= 1.f && el2 > veto_min_len2) {
-                            Vec3 na = m.vnormal((int)v);
+                            Vec3 na = m.vnormal(v);
                             Vec3 nb = m.vnormal(u);
                             float dp = na.dot(nb);
                             float nn = std::sqrt(na.norm2() * nb.norm2())
@@ -647,22 +743,21 @@ void remesh_native(const float* verts_in, int nv, const int32_t* faces_in,
                             if (dp < veto_cos * nn) continue;
                         }
                         ++n_att;
-                        if (m.collapse((int)v, u, max_valence, ra, rb,
-                                       high2, &ring)) {
+                        bool early;
+                        if (m.collapse(v, u, max_valence, ring, rb, high2,
+                                       &early)) {
                             again = true;
                             ++n_edit;
                             ++n_coll;
-                            if (!no_dirty) {
-                                ++seq;
-                                stamp((int)v);
-                            }
+                            ++seq;
+                            stamp(v);
                             break;
                         }
+                        n_early += early;
                     }
                 }
             }
         }
-        auto t2 = clk::now();
 
         // flip pass.  Candidate prefilter: a flip strictly reduces
         // Sum (valence-6)^2 over the 4 involved vertices (a, b and the
@@ -678,55 +773,91 @@ void remesh_native(const float* verts_in, int nv, const int32_t* faces_in,
         // it waits for the next pass's fresh scan — acceptable in a
         // fixed-point heuristic re-run every pass and every remesh
         // boundary.
-        long n_flip = 0, n_fatt = 0;
         {
-            std::vector<int32_t> val(m.pos.size(), 0);
+            vq.assign(m.pos.size(), Valence{0, INT32_MAX});
+            Valence* q = vq.data();
             nf_now = m.faces.size();
             for (size_t fi = 0; fi < nf_now; ++fi) {
                 if (!m.face_live[fi]) continue;
-                for (int k = 0; k < 3; ++k) ++val[m.faces[fi][k]];
+                for (int k = 0; k < 3; ++k) ++q[m.faces[fi][k]].val;
             }
-            std::vector<uint8_t> irr2(m.pos.size(), 0);
+            irr2.assign(m.pos.size(), 0);
+            // q[v].nbmin: no neighbour of v has a lower valence (kept so
+            // as flips land: see below)
             for (size_t fi = 0; fi < nf_now; ++fi) {
                 if (!m.face_live[fi]) continue;
                 const auto& F = m.faces[fi];
-                if (val[F[0]] != 6 || val[F[1]] != 6 || val[F[2]] != 6)
-                    irr2[F[0]] = irr2[F[1]] = irr2[F[2]] = 1;
+                uint8_t irr = (q[F[0]].val != 6) | (q[F[1]].val != 6)
+                              | (q[F[2]].val != 6);
+                irr2[F[0]] |= irr;
+                irr2[F[1]] |= irr;
+                irr2[F[2]] |= irr;
+                for (int k = 0; k < 3; ++k)
+                    q[F[k]].nbmin = std::min(q[F[k]].nbmin,
+                                             std::min(q[F[(k + 1) % 3]].val,
+                                                      q[F[(k + 2) % 3]].val));
             }
             for (size_t fi = 0; fi < nf_now; ++fi) {
                 if (!m.face_live[fi]) continue;
                 for (int k = 0; k < 3; ++k) {
                     int a = m.faces[fi][k];
                     int b = m.faces[fi][(k + 1) % 3];
-                    if (a < b && (irr2[a] || irr2[b])) {
-                        ++n_fatt;
-                        if (m.flip(a, b, ra, &val)) {
-                            ++n_flip;
-                            if (!no_dirty) {
-                                ++seq;
-                                // the rewired quad: a, b and the new
-                                // diagonal (post-flip faces[fi] holds
-                                // (u, d, c))
-                                stamp(a);
-                                stamp(b);
-                                for (int kk = 0; kk < 3; ++kk)
-                                    stamp(m.faces[fi][kk]);
-                            }
+                    // Valence guard before the walk.  A flip lands
+                    // only if va + vb - vc - vd >= 3 (the Sum (v-6)^2
+                    // test, rearranged), and fi, a live face on edge
+                    // (a, b), is f1 or f2 of any flip that lands, so
+                    // its third corner x is c or d, and the other, a
+                    // neighbour of a and b, has a valence of at least
+                    // both nbmins: the guard rejects only flips that
+                    // flip() would reject.  Both tests are evaluated
+                    // without branches.
+                    int x = m.faces[fi][(k + 2) % 3];
+                    bool att = (a < b) & (irr2[a] | irr2[b]);
+                    bool go = att & (q[a].val + q[b].val - q[x].val
+                                     - std::max(q[a].nbmin, q[b].nbmin)
+                                     >= 3);
+                    n_fatt += att;
+                    n_fearly += att & !go;
+                    if (go && m.flip(a, b, q)) {
+                        ++n_flip;
+                        // a and b lost one: so may their neighbours'
+                        // nbmin; c-d is a new edge
+                        for (int w : {a, b}) {
+                            const int32_t vw = q[w].val;
+                            int n;
+                            const int32_t* L = m.inc(w, n);
+                            for (int i = 0; i < n; ++i)
+                                for (int u : m.faces[L[i]])
+                                    q[u].nbmin = std::min(
+                                        q[u].nbmin, u != w ? vw : INT32_MAX);
                         }
+                        // (fi now holds c and d beside a or b)
+                        int cd[2], j = 0;
+                        for (int u : m.faces[fi])
+                            if (u != a && u != b) cd[j++] = u;
+                        q[cd[0]].nbmin = std::min(q[cd[0]].nbmin,
+                                                  q[cd[1]].val);
+                        q[cd[1]].nbmin = std::min(q[cd[1]].nbmin,
+                                                  q[cd[0]].val);
+                        ++seq;
+                        // the rewired quad: a, b and the new
+                        // diagonal (post-flip faces[fi] holds
+                        // (u, d, c))
+                        stamp(a);
+                        stamp(b);
+                        for (int kk = 0; kk < 3; ++kk)
+                            stamp(m.faces[fi][kk]);
                     }
                 }
             }
         }
-        auto t3 = clk::now();
 
         if (n_relax > 0) {
             m.relax(l, n_relax);
             // relax repositions every vertex: the whole dirty-set is
             // invalidated (fit remeshes run n_relax=0 and keep it)
-            if (!no_dirty) {
-                ++seq;
-                std::fill(touched.begin(), touched.end(), seq);
-            }
+            ++seq;
+            std::fill(touched.begin(), touched.end(), seq);
         }
 
         // drop accumulated tombstones so later passes don't scan them
@@ -736,44 +867,21 @@ void remesh_native(const float* verts_in, int nv, const int32_t* faces_in,
             for (auto fl : m.face_live) dead += !fl;
             if (dead * 3 > m.faces.size()) {
                 m.rebuild_compact();
-                if (!no_dirty) {
-                    // compaction RENUMBERS vertices, which flips the
-                    // split scan's a<b orientation dedup for edges
-                    // whose ascending-oriented face died (a baseline
-                    // quirk: such edges are uncheckable until a
-                    // renumbering happens to restore an ascending
-                    // live face) — scan outcomes therefore change
-                    // with unchanged positions.  Mark everything
-                    // dirty: the next pass scans fully, exactly like
-                    // the baseline's post-compact pass (measured: 25
-                    // skipped-face divergences on a coarsening
-                    // remesh before this reset).
-                    ++seq;
-                    touched.assign(m.pos.size(), seq);
-                }
+                ++n_compact;
+                // compaction RENUMBERS vertices, which flips the
+                // split scan's a<b orientation dedup for edges
+                // whose ascending-oriented face died (a baseline
+                // quirk: such edges are uncheckable until a
+                // renumbering happens to restore an ascending
+                // live face) — scan outcomes therefore change
+                // with unchanged positions.  Mark everything
+                // dirty: the next pass scans fully, exactly like
+                // the baseline's post-compact pass (measured: 25
+                // skipped-face divergences on a coarsening
+                // remesh before this reset).
+                ++seq;
+                touched.assign(m.pos.size(), seq);
             }
-        }
-        auto t4 = clk::now();
-        if (dbg) {
-            auto ms = [](clk::time_point a, clk::time_point b) {
-                return std::chrono::duration<double, std::milli>(
-                    b - a).count();
-            };
-            std::fprintf(stderr,
-                         "remesh pass %d: split %.1fms (%ld) collapse "
-                         "%.1fms (%ld cand %ld att %ld) flip "
-                         "%.1fms (%ld att %ld) tail %.1fms F=%zu\n",
-                         pass, ms(t0, t1), n_split, ms(t1, t2), n_coll,
-                         n_cand, n_att,
-                         ms(t2, t3), n_flip, n_fatt, ms(t3, t4),
-                         m.faces.size());
-            std::fprintf(stderr,
-                         "  collapse fails: ef %ld link %ld val %ld "
-                         "high2 %ld fold %ld\n", m.fail_ef,
-                         m.fail_link, m.fail_val, m.fail_high2,
-                         m.fail_fold);
-            m.fail_ef = m.fail_link = m.fail_val = m.fail_high2 =
-                m.fail_fold = 0;
         }
 
         // converged: remaining edits are churn, not progress
@@ -781,6 +889,9 @@ void remesh_native(const float* verts_in, int nv, const int32_t* faces_in,
             break;
     }
     m.compact(verts_out, faces_out, nv_out, nf_out, v_cap, f_cap);
+    const int64_t out[9] = {n_split, n_coll, n_flip, n_att, n_fatt,
+                            n_early, n_fearly, m.n_spill, n_compact};
+    std::memcpy(counts, out, sizeof(out));
 }
 
 // Mean halfedge length (== unique-edge mean on closed meshes, each

@@ -23,6 +23,7 @@ from ch_shrinkwrap_tpu.mesh.remesh import remesh as jremesh
 from ch_shrinkwrap_tpu.mesh.marching import wrap_start as jwrap
 from ch_shrinkwrap_tpu.ops import meshdata as jmd
 from ch_shrinkwrap_tpu.ops import correspondence as jcorr
+from ch_shrinkwrap_tpu import native as jnative
 
 from ch_shrinkwrap_torch.mesh.core import TriangleMesh as TMesh
 from ch_shrinkwrap_torch.mesh.primitives import icosphere as tico
@@ -30,6 +31,7 @@ from ch_shrinkwrap_torch.mesh.remesh import remesh as tremesh
 from ch_shrinkwrap_torch.mesh.marching import wrap_start as twrap
 from ch_shrinkwrap_torch.ops import meshdata as tmd
 from ch_shrinkwrap_torch.ops import ordering as tord
+from ch_shrinkwrap_torch import native as tnative
 
 from torch_parity_native import load_both_engines
 
@@ -39,13 +41,13 @@ torch.set_num_threads(1)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def noisy_sphere(sub, seed=0, radius=50.0):
+def noisy_sphere(sub, seed=0, radius=50.0, noise=0.3):
     v, f = jico(sub, radius=radius)
     tv, tf = tico(sub, radius=radius)
     np.testing.assert_array_equal(v, tv)
     np.testing.assert_array_equal(f, tf)
     rng = np.random.default_rng(seed)
-    v = (v + rng.normal(scale=0.3, size=v.shape)).astype(np.float32)
+    v = (v + rng.normal(scale=noise, size=v.shape)).astype(np.float32)
     return v, f
 
 
@@ -104,6 +106,70 @@ def test_remesh_bit_identical(target_scale, n_relax):
     tremesh(b, n=3, target_edge_length=target, n_relax=n_relax)
     np.testing.assert_array_equal(a.vertices, b.vertices)
     np.testing.assert_array_equal(a.faces, b.faces)
+
+
+def _mean_edge(v, f):
+    e = v[f[:, 0]] - v[f[:, 1]]
+    return float(np.sqrt((e * e).sum(1)).mean())
+
+
+def _engines_agree(v, f, target, **kw):
+    """Both packages' native engines on (v, f): equal bits.  Returns
+    the port's (V, F, counts)."""
+    jv, jf = jnative.remesh(v, f, target, **kw)
+    tv, tf, counts = tnative.remesh(v, f, target, **kw)
+    np.testing.assert_array_equal(jv, tv)
+    np.testing.assert_array_equal(jf, tf)
+    return tv, tf, counts
+
+
+def _growth_chain():
+    """Three growth remeshes of a noisy subdivision-6 icosphere (0.8,
+    0.7, 0.6 of its mean edge; 5 passes, no relax), in Hilbert order
+    between them as in a fit; each compacts between passes."""
+    v, f = noisy_sphere(6, seed=5)
+    base = _mean_edge(v, f)
+    for scale in (0.8, 0.7, 0.6):
+        v, f, counts = _engines_agree(v, f, scale * base)
+        assert counts['splits'] > counts['collapses'] > 0
+        assert counts['compactions'] >= 1
+        mesh = TMesh(v, f)
+        mesh.spatial_sort()
+        v, f = mesh.vertices, mesh.faces
+
+
+def _collapse_veto():
+    """The thin-tube collapse veto (the model's cosine and length) on a
+    crumpled sphere, where it changes the mesh."""
+    v, f = noisy_sphere(4, seed=6, noise=2.0)
+    t = 0.7 * _mean_edge(v, f)
+    vetoed, _, _ = _engines_agree(v, f, t, veto_cos=0.5,
+                                  veto_min_len=0.25 * t)
+    plain, _, _ = _engines_agree(v, f, t)
+    assert vetoed.shape != plain.shape or (vetoed != plain).any()
+
+
+def _coarsening_relaxed():
+    """A coarsening remesh with relaxation between passes."""
+    v, f = noisy_sphere(5, seed=7)
+    _, _, counts = _engines_agree(v, f, 1.6 * _mean_edge(v, f), n_relax=3)
+    assert counts['collapses'] > counts['splits']
+
+
+def _spilled_lists():
+    """Coarsening a crumpled sphere: collapses pile faces onto vertices
+    beyond their slab block, so incidence lists move out and back."""
+    v, f = noisy_sphere(4, seed=6, noise=3.0)
+    _, _, counts = _engines_agree(v, f, 1.5 * _mean_edge(v, f))
+    assert counts['spills'] > 0
+
+
+@pytest.mark.parametrize('case', [_growth_chain, _collapse_veto,
+                                  _coarsening_relaxed, _spilled_lists],
+                         ids=lambda c: c.__name__.lstrip('_'))
+def test_remesh_bit_identical_engines(case):
+    """The port's engine against the JAX package's, call for call."""
+    case()
 
 
 def test_wrap_start_bit_identical():

@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+from ch_shrinkwrap_torch import native
 from ch_shrinkwrap_torch.mesh.marching import wrap_start
 from ch_shrinkwrap_torch.mesh.primitives import icosphere
 from ch_shrinkwrap_torch.models import MembraneMesh
@@ -177,6 +178,44 @@ def test_dump_jsonl_round_trips_times_and_parents(fit, tmp_path):
             assert line['parent'] is None
         else:
             assert trace.records[line['parent']] is r.parent
+
+
+def test_engine_spans_carry_the_remesh_counts(monkeypatch):
+    """A small closed sphere fit: each native remesh (the seed's and the
+    scheduled ones) records the engine's counts on its ``engine`` span,
+    and as the surface stays closed, the vertices out are the vertices
+    in plus the splits less the collapses.  The ``remesh`` record keeps
+    the JAX package's extras."""
+    calls = []
+    engine = native.remesh
+
+    def counted(vertices, faces, *a, **k):
+        out = engine(vertices, faces, *a, **k)
+        calls.append((len(vertices), len(out[0]), out[2]))
+        return out
+    monkeypatch.setattr(native, 'remesh', counted)
+    pts, sig = _cloud(seed=1)
+    mesh = MembraneMesh(mesh=wrap_start(pts, offset=25.0, grid_n=12),
+                        kc=1.0, step_size=20.0, max_iter=10,
+                        remesh_frequency=5, device='cpu')
+    mesh.shrink_wrap(pts, sig, method='conjugate_gradient',
+                     minimum_edge_length=8.0)
+    recs = mesh.trace.records
+    spans = [r for r in recs if r.kind.endswith('remesh/engine')]
+    assert [r.kind for r in spans] == ['seed/remesh/engine'] + \
+        ['remesh/engine'] * (len(spans) - 1)
+    assert len(spans) == len(calls) >= 3
+    for rec, (n_in, n_out, counts) in zip(spans, calls):
+        assert list(rec.extra) == list(native.REMESH_COUNTS)
+        assert rec.extra == counts
+        assert n_out == n_in + counts['splits'] - counts['collapses']
+        assert counts['collapse_early_rejects'] <= \
+            counts['collapse_attempts']
+        assert counts['flip_early_rejects'] <= counts['flip_attempts']
+    remeshes = [r for r in recs if r.kind == 'remesh']
+    assert len(remeshes) == len(spans) - 1
+    for r in remeshes:
+        assert set(r.extra) in JAX_EXTRAS['remesh']
 
 
 def test_short_edge_pass_spans():
