@@ -910,7 +910,8 @@ class MembraneMesh(TriangleMesh):
                     blk.extra.update(
                         n_iters=n_it, v_cap=int(positions.shape[0]),
                         block_s=(trace.now_ns() - call.start_ns) / 1e9,
-                        **prep)
+                        shrink=use_shrink,
+                        directions=int(diag.S.shape[-1]), **prep)
                     blk.observe(self, diag)
             logger.info('cg_block done j=%d/%d (%.1fs, V=%d, cap=%s)',
                         j, n_iter, blk.wall_time,

@@ -308,29 +308,41 @@ class ImageShrinkwrapMembrane(ModuleBase):
                             neck_threshold_high=self.neck_threshold_high,
                             neck_first_iter=self.neck_first_iter,
                             shrink_weight=self.shrink_weight)
-        mesh.repair()
-        mesh.remesh()
+        # the recipe's own work before the fit, as spans that close
+        # before shrink_wrap opens its own
+        trace = mesh.trace
+        with trace.span('recipe'):
+            with trace.span('repair'):
+                mesh.repair()
+            with trace.span('remesh'):
+                mesh.remesh()
 
-        namespace[self.output] = mesh
+            namespace[self.output] = mesh
 
-        im = namespace[self.input_image]
-        # image protocol: .data (nx, ny, nz), .voxelsize_nm, .origin
-        weights = np.asarray(im.data)
-        vx, vy, vz = im.voxelsize_nm
-        ox, oy, oz = im.origin
+            with trace.span('pseudo_points') as rec:
+                im = namespace[self.input_image]
+                # image protocol: .data (nx, ny, nz), .voxelsize_nm,
+                # .origin
+                weights = np.asarray(im.data)
+                vx, vy, vz = im.voxelsize_nm
+                ox, oy, oz = im.origin
 
-        x, y, z = np.mgrid[0:weights.shape[0], 0:weights.shape[1],
-                           0:weights.shape[2]]
-        x = ox + vx * x.ravel()
-        y = oy + vy * y.ravel()
-        z = oz + vz * z.ravel()
-        weights = weights.ravel()
-        mask = weights > 0
-        weights = weights[mask]
+                x, y, z = np.mgrid[0:weights.shape[0], 0:weights.shape[1],
+                                   0:weights.shape[2]]
+                x = ox + vx * x.ravel()
+                y = oy + vy * y.ravel()
+                z = oz + vz * z.ravel()
+                weights = weights.ravel()
+                mask = weights > 0
+                rec.extra['voxels'] = int(weights.size)
+                weights = weights[mask]
 
-        pts = np.ascontiguousarray(np.vstack([x[mask], y[mask],
-                                              z[mask]]).T)
-        sigma = vx
+                pts = np.ascontiguousarray(np.vstack([x[mask], y[mask],
+                                                      z[mask]]).T)
+                sigma = vx
+                rec.extra.update(n_pseudo=int(pts.shape[0]),
+                                 weight_sum=float(np.sum(weights,
+                                                         dtype=np.float64)))
 
         mesh.shrink_wrap(pts, sigma=sigma,
                          weights=np.repeat(weights, 3).reshape(-1, 3),

@@ -41,10 +41,12 @@ FIT_KINDS = {
     'remesh', 'remesh/engine', 'remesh/topology', 'remesh/components'}
 
 # the extras of the record kinds the JAX package's trace keeps
+# a cg_block record also says whether the shrink prior was on and how
+# many search directions the block's subspace had
 JAX_EXTRAS = {
-    'cg_block': ({'n_iters', 'v_cap', 'block_s'},
+    'cg_block': ({'n_iters', 'v_cap', 'block_s', 'shrink', 'directions'},
                  {'n_iters', 'v_cap', 'block_s', 'sort_s', 'pad_s',
-                  'tables_s'}),
+                  'tables_s', 'shrink', 'directions'}),
     'punch_holes': ({'n_punched'},),
     'remove_necks': ({'necks_flagged', 'necks_removed'},),
     'short_edges': (set(),),
@@ -158,6 +160,8 @@ def test_jax_kind_records_keep_their_extras(fit):
         assert r.n_vertices > 0 and r.n_faces > 0
         if r.kind == 'cg_block':
             assert r.tests is not None and r.ress is not None
+            assert r.extra['shrink'] is False
+            assert r.extra['directions'] == 3
             block = [c for c in fit['mesh'].trace.records
                      if c.parent is r and c.kind == 'cg_block/block']
             # block_s runs from the call through the host update
