@@ -13,9 +13,9 @@ I/O — re-designed for a TPU-first pipeline:
   neighbor table (``NEIGHBORSIZE = 20``, same bound as the reference's
   ``membrane_mesh_utils.h:26``), normals, areas and components are
   *derived* caches, recomputed vectorized after each topology change;
-* topology edits (remesh passes, vertex removal, hole filling) are
-  batched numpy passes that emit a new (V, F) pair rather than in-place
-  pointer surgery, which makes them conflict-free by construction.
+* topology edits (remesh passes, vertex removal, hole filling) emit a
+  new (V, F) pair rather than editing in place: batched numpy passes,
+  or one call into the native engine that gives the same arrays.
 """
 
 from __future__ import annotations
@@ -480,16 +480,28 @@ class TriangleMesh:
         self.set_topology(new_v, new_f)
         self.extra_vertex_data = extra
 
-    def repair(self, max_passes=8):
+    def repair(self, max_passes=8, remove=None):
         """Close boundary holes and restore edge-manifoldness.
 
         Counterpart of PYME ``repair`` used after vertex removal
         (_membrane_mesh.pyx:1216).  Iterates: drop degenerate /
         duplicate faces and faces on over-shared (non-manifold) edges,
         split boundary walks into simple cycles and zig-zag fill them,
-        erode boundary faces that cannot be filled, drop debris
-        components — until the boundary is gone or passes run out; then
-        splits pinch points and drops the debris that frees.
+        drop debris components — until the boundary is gone or passes
+        run out; then splits pinch points and drops the debris that
+        frees.
+
+        ``remove``: vertices to delete first, with every face touching
+        them (:meth:`unsafe_remove_vertices`), leaving the holes this
+        closes.  Returns the counts of ``native.REPAIR_COUNTS``.
+
+        One native call does the removal and every pass on one
+        halfedge structure, revisiting only the faces around the holes;
+        its arrays equal those of the numpy passes
+        (:meth:`_repair_numpy`) bit for bit.  The numpy passes erode a
+        boundary walk that does not close; after the hygiene every walk
+        closes (each vertex has as many outgoing as incoming boundary
+        halfedges), so the native call raises instead of eroding.
 
         Two departures from the JAX package's ``repair``, which returns
         before the split when the holes close (and so can leave pinch
@@ -498,17 +510,39 @@ class TriangleMesh:
         hole's ring can keep the fill from closing the hole) the passes
         run once more.
         """
+        from .. import native
+        mask = None
+        if remove is not None:
+            mask = np.zeros(self._vertices.shape[0], dtype=bool)
+            mask[np.asarray(remove, dtype=np.int64)] = True
+        faces, vmap, counts = native.repair(
+            self._faces, self._vertices.shape[0], mask, max_passes)
+        if faces is not None:
+            extra = {k: v[vmap] for k, v in self.extra_vertex_data.items()}
+            self.set_topology(self._vertices[vmap], faces)
+            self.extra_vertex_data = extra
+        return counts
+
+    def _repair_numpy(self, max_passes=8, remove=None):
+        """:meth:`repair` as numpy passes over the whole mesh: the
+        reference that the tests hold the native call to."""
+        from ..native import REPAIR_COUNTS
+        counts = dict.fromkeys(REPAIR_COUNTS, 0)
+        if remove is not None:
+            self.unsafe_remove_vertices(remove)
         for _ in range(2):
-            self._repair_passes(max_passes)
+            self._repair_passes(max_passes, counts)
             if self._faces.size == 0:
-                return
-            self.split_pinched_vertices()
+                break
+            counts['split_vertices'] += self.split_pinched_vertices()
             self._drop_debris()
             if not self.boundary_loops():
-                return
+                break
+        return counts
 
-    def _repair_passes(self, max_passes):
-        """The JAX package's repair passes, up to ``max_passes``."""
+    def _repair_passes(self, max_passes, counts):
+        """The JAX package's repair passes, up to ``max_passes``; adds
+        its work to ``counts``."""
         for _ in range(max_passes):
             f = self._faces
             if f.size == 0:
@@ -541,15 +575,17 @@ class TriangleMesh:
                 hi = np.maximum(a, b)
                 ekey = (lo.astype(np.int64) << 32
                         | hi.astype(np.int64)).ravel()
-                uniq, inv, counts = np.unique(ekey, return_inverse=True,
-                                              return_counts=True)
-                over = (counts[inv] > 2).reshape(f.shape).any(1)
+                uniq, inv, n_inc = np.unique(ekey, return_inverse=True,
+                                             return_counts=True)
+                over = (n_inc[inv] > 2).reshape(f.shape).any(1)
                 bad = degen | dup | over
             if bad.any():
                 self._compact(f[~bad])
+                counts['passes'] += 1
                 continue
 
             if self._drop_debris():
+                counts['passes'] += 1
                 continue
 
             loops = self.boundary_loops()
@@ -558,6 +594,8 @@ class TriangleMesh:
             he = self.halfedges
             new_tris = []
             erode = set()
+            counts['holes'] += len(loops)
+            counts['passes'] += 1
             for loop in loops:
                 ring = he.src[loop]
                 closed = (len(ring) >= 3
@@ -575,6 +613,7 @@ class TriangleMesh:
                 faces = faces[keep]
             if new_tris:
                 faces = np.vstack([faces] + new_tris)
+                counts['faces_added'] += sum(len(t) for t in new_tris)
             if not erode and not new_tris:
                 # unfixable ring shapes: erode everything on a boundary
                 bset = np.unique(he.face[np.flatnonzero(he.twin < 0)])
@@ -596,11 +635,13 @@ class TriangleMesh:
 
     def split_pinched_vertices(self):
         """Duplicate vertices whose incident faces form more than one
-        fan (pinch points), restoring vertex-manifoldness."""
+        fan (pinch points), restoring vertex-manifoldness; a copy
+        carries its vertex's ``extra_vertex_data``.  Returns the number
+        of copies."""
         he = self.halfedges
         E = len(he.src)
         if E == 0:
-            return
+            return 0
         # fan labels: outgoing halfedges h and next[twin[h]] share a fan
         labels = np.arange(E, dtype=np.int64)
         has_twin = he.twin >= 0
@@ -629,7 +670,7 @@ class TriangleMesh:
         keep_mask = np.zeros(len(uniq), dtype=bool)
         keep_mask[first_pos] = True
         if keep_mask.all():
-            return
+            return 0
         new_id = np.where(keep_mask, grp_src, -1)
         extra = np.flatnonzero(new_id < 0)
         new_id[extra] = self._vertices.shape[0] + np.arange(len(extra))
@@ -637,7 +678,11 @@ class TriangleMesh:
                                    self._vertices[grp_src[extra]]])
         # rewrite face corners: corner (f, k) owns outgoing halfedge 3f+k
         new_faces = new_id[grp].reshape(-1, 3).astype(np.int32)
+        extra_data = {k: np.concatenate([v, v[grp_src[extra]]])
+                      for k, v in self.extra_vertex_data.items()}
         self.set_topology(new_positions, new_faces)
+        self.extra_vertex_data = extra_data
+        return len(extra)
 
     def remove_inner_surfaces(self):
         """Remove connected components nested inside larger components.

@@ -526,9 +526,10 @@ class MembraneMesh(TriangleMesh):
             logger.info('remove_necks[%s]: 0 verts flagged',
                         self.neck_detector)
             return n_flagged, 0
-        with tracing.span(self, 'repair'):
-            self.unsafe_remove_vertices(verts)
-            self.repair()
+        with tracing.span(self, 'repair') as rec:
+            counts = self.repair(remove=verts)
+            if rec is not None:
+                rec.extra.update(counts)
         if not defer_remesh:
             self.remesh(n_relax=0)
         with tracing.span(self, 'inner'):
@@ -581,15 +582,16 @@ class MembraneMesh(TriangleMesh):
         verts = np.unique(he.vertex[short])
         if len(verts) == 0:
             return
-        with tracing.span(self, 'repair'):
+        with tracing.span(self, 'repair') as rec:
             # a hygiene pass must never raise the component count:
             # snapshot and roll back when it does (or when it empties
             # the mesh)
             snap_v = self.vertices.copy()
             snap_f = self.faces.copy()
             n_before = self.connected_components()[1]
-            self.unsafe_remove_vertices(verts)
-            self.repair()
+            counts = self.repair(remove=verts)
+            if rec is not None:
+                rec.extra.update(counts)
         if not defer_remesh:
             self.remesh(n_relax=0)
         with tracing.span(self, 'inner'):

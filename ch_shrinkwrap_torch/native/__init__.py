@@ -157,6 +157,12 @@ def get_lib():
     lib.has_nonmanifold_vertices_native.argtypes = [
         i32p, i32p, i32p, i32p, ctypes.c_int64, ctypes.c_int64]
     lib.has_nonmanifold_vertices_native.restype = ctypes.c_int32
+    lib.repair_native.argtypes = [
+        i32p, ctypes.c_int64, ctypes.c_int32, u8p, ctypes.c_int,
+        i64p, i64p]
+    lib.repair_native.restype = ctypes.c_void_p
+    lib.repair_fetch_native.argtypes = [ctypes.c_void_p, i32p, i32p]
+    lib.repair_fetch_native.restype = None
     _lib = lib
     return lib
 
@@ -233,6 +239,60 @@ def remesh(vertices, faces, target, n_passes=5, l=0.5, n_relax=0,
     raise RuntimeError('native remesh: output overflowed its capacity '
                        '(%d vertices, %d faces) three times'
                        % (v_cap, f_cap))
+
+
+# the repair's counts, in the order repair_native writes them
+REPAIR_COUNTS = ('holes', 'passes', 'faces_added', 'split_vertices')
+
+
+def repair(faces, n_vertices, remove=None, max_passes=8):
+    """Native vertex removal and repair, bit-identical to the numpy
+    passes of ``TriangleMesh._repair_numpy``; returns ``(faces, vmap,
+    counts)``, with faces and vmap None when the mesh came out as it
+    went in.
+
+    ``remove``: bool (n_vertices,) mask of vertices to delete with
+    every face touching them, or None.  ``vmap[i]`` is the input vertex
+    that output vertex i is (a pinch point's copy maps to the vertex it
+    was split from).  ``counts`` maps each name of ``REPAIR_COUNTS`` to
+    its count: the boundary loops the fill passes walked, the passes
+    that changed the mesh, the triangles they filled in, and the pinch
+    points' copies.  Raises RuntimeError on a boundary walk that does
+    not close, which the numpy passes would erode and the hygiene
+    leaves none of."""
+    lib = get_lib()
+    f = np.ascontiguousarray(faces, dtype=np.int32)
+    if f.ndim != 2 or f.shape[1] != 3 or (
+            f.size and (f.min() < 0 or f.max() >= n_vertices)):
+        raise ValueError('repair: faces %s must index %d vertices'
+                         % (f.shape, n_vertices))
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+    if remove is None:
+        rm_ptr = ctypes.cast(None, u8p)
+    else:
+        rm = np.ascontiguousarray(remove, dtype=np.uint8)
+        if rm.shape != (n_vertices,):
+            raise ValueError('repair: a removal mask of %s for %d vertices'
+                             % (rm.shape, n_vertices))
+        rm_ptr = rm.ctypes.data_as(u8p)
+    sizes = np.zeros(3, np.int64)
+    counts = np.zeros(len(REPAIR_COUNTS), np.int64)
+    i64p = ctypes.POINTER(ctypes.c_int64)
+    h = lib.repair_native(_i32p(f), len(f), int(n_vertices), rm_ptr,
+                          int(max_passes), sizes.ctypes.data_as(i64p),
+                          counts.ctypes.data_as(i64p))
+    if not h:
+        if sizes[2] == -1:
+            raise RuntimeError('native repair: a boundary walk did not '
+                               'close (%d faces)' % len(f))
+        raise MemoryError('native repair: out of memory at %d faces'
+                          % len(f))
+    nv_out, nf_out, changed = (int(x) for x in sizes)
+    faces_out = np.empty((nf_out, 3), np.int32)
+    vmap = np.empty(nv_out, np.int32)
+    lib.repair_fetch_native(h, _i32p(faces_out), _i32p(vmap))
+    counts = dict(zip(REPAIR_COUNTS, counts.tolist()))
+    return (faces_out, vmap, counts) if changed else (None, None, counts)
 
 
 def mean_edge(vertices, faces):

@@ -2110,3 +2110,759 @@ int32_t has_nonmanifold_vertices_native(const int32_t* he_src,
 }
 
 }  // extern "C"
+
+
+// ---------------------------------------------------------------------
+// Vertex removal and hole repair: mesh.core.TriangleMesh.repair, bit
+// for bit the arrays of its numpy passes (TriangleMesh._repair_numpy).
+//
+// The numpy passes rebuild the whole mesh several times a pass.  Here
+// faces keep their ids (killed faces drop out, fill triangles append,
+// so the live faces stay in the numpy passes' order) and vertices keep
+// theirs (split copies append in the order the numpy split numbers
+// them), so one compaction at the end gives the same arrays.  What a
+// pass reads about a vertex (the twins of its outgoing halfedges, its
+// fans, the faces on its edges) depends on the faces around it alone.
+// Every edit logs the corners of the faces it kills, adds or rewrites,
+// and each check re-derives only what the log names since it last
+// ran.  Only the first look is global: face hygiene, the boundary and
+// the pinch candidates in one sweep over the vertices, and one
+// union-find for the debris.
+namespace {
+
+constexpr int kDebrisFaces = 8;    // components under this many faces go
+constexpr int kFanRounds = 64;     // the numpy split's propagation rounds
+// a fan of at most this many halfedges converges within kFanRounds
+constexpr int kFanConverges = kFanRounds + 1;
+// below this many live faces the debris check runs over the whole mesh
+constexpr int64_t kDebrisGlobal = 64;
+
+enum { kHoles, kPasses, kAdded, kSplit, kRepairCounts };
+
+// a boundary walk that does not close, or a pass that fills nothing:
+// the numpy passes erode there, and the hygiene leaves neither
+struct OpenWalk {};
+
+// an outgoing halfedge with its face's other corners (its dst and its
+// prev's src), as the input had them
+struct OutEdge { int32_t h, b, c; };
+
+struct RepairEngine {
+    int32_t nv0 = 0;                  // input vertices
+    int32_t nvt = 0;                  // vertex ids in use (input + copies)
+    std::vector<int32_t> F;           // 3 a face, every face ever made
+    std::vector<uint8_t> alive;
+    int64_t n_alive = 0;
+    std::vector<int32_t> origin;      // copy (id - nv0) -> input vertex
+    // outgoing halfedges by source: the input's, then a list of its own
+    // for each vertex whose faces changed (fills, splits); dead faces
+    // are skipped on reading
+    std::vector<int32_t> off;
+    std::vector<OutEdge> lst;
+    std::vector<int32_t> dyn_idx;
+    std::vector<std::vector<int32_t>> dyn;
+    bool compacted = false;           // numpy has dropped unused vertices
+    bool edited = false;              // removal included
+    bool edited_since_init = false;   // a face killed, added or split
+    std::vector<int32_t> uf;          // the first look's union-find
+    std::vector<int32_t> touched;     // corners of edited faces
+    std::vector<int32_t> added;       // appended faces
+    size_t cur_bnd = 0, cur_debris = 0, cur_split = 0, cur_hyg = 0;
+    bool hyg_first = true, debris_first = true, split_first = true;
+    std::vector<uint8_t> hyg0;        // the first hygiene's flags
+    std::vector<int32_t> pinch0;      // the first split's candidates
+    std::vector<uint8_t> is_bnd;      // per halfedge, valid while live
+    std::vector<int32_t> bnd;         // boundary halfedges (candidates)
+    std::vector<int32_t> vstamp, fstamp;
+    int32_t stamp = 0;
+    int64_t counts[kRepairCounts] = {0, 0, 0, 0};
+    // one vertex's live outgoing halfedges, their far corners (dst and
+    // prev's src), and per halfedge: the one whose prev is its twin
+    // (-1 without a twin), and the halfedges on its undirected edge
+    std::vector<int32_t> sH, sB, sC, sP, sN;
+    std::vector<int32_t> fan_inv, fan_seen;
+
+    static int32_t nxt(int32_t h) { return h % 3 == 2 ? h - 2 : h + 1; }
+    static int32_t prv(int32_t h) { return h % 3 == 0 ? h + 2 : h - 1; }
+
+    template <class Fn> void for_out(int32_t v, Fn&& fn) const {
+        int32_t d = dyn_idx[v];
+        if (d >= 0) {
+            for (int32_t h : dyn[d])
+                if (alive[h / 3]) fn(h);
+        } else if (v < nv0) {
+            for (int32_t p = off[v]; p < off[v + 1]; ++p)
+                if (alive[lst[p].h / 3]) fn(lst[p].h);
+        }
+    }
+
+    bool live_vertex(int32_t v) const {
+        bool any = false;
+        for_out(v, [&](int32_t) { any = true; });
+        return any;
+    }
+
+    std::vector<int32_t>& own_list(int32_t v) {
+        if (dyn_idx[v] < 0) {
+            std::vector<int32_t> l;
+            for_out(v, [&](int32_t h) { l.push_back(h); });
+            dyn_idx[v] = (int32_t)dyn.size();
+            dyn.push_back(std::move(l));
+        }
+        return dyn[dyn_idx[v]];
+    }
+
+    // sH.. of vertex v; sP[i] = j when halfedge i's directed edge is the
+    // only one each way (numpy's twin: prev(sH[j])), sN[i] = halfedges
+    // on its undirected edge (numpy's hygiene count)
+    int gather(int32_t v) {
+        sH.clear(); sB.clear(); sC.clear();
+        for_out(v, [&](int32_t h) {
+            sH.push_back(h);
+            sB.push_back(F[nxt(h)]);
+            sC.push_back(F[prv(h)]);
+        });
+        const int k = (int)sH.size();
+        sP.assign(k, -1);
+        sN.assign(k, 0);
+        for (int i = 0; i < k; ++i) {
+            const int32_t b = sB[i];
+            int nd = 0, nr = 0, jr = -1;
+            for (int j = 0; j < k; ++j) {
+                if (sB[j] == b) ++nd;
+                if (sC[j] == b) { ++nr; jr = j; }
+            }
+            if (nd == 1 && nr == 1) sP[i] = jr;
+            sN[i] = b == v ? nd : nd + nr;
+        }
+        return k;
+    }
+
+    void touch_face(int32_t f) {
+        touched.push_back(F[3 * f]);
+        touched.push_back(F[3 * f + 1]);
+        touched.push_back(F[3 * f + 2]);
+    }
+
+    void kill(int32_t f) {
+        if (!alive[f]) return;
+        edited_since_init = true;
+        alive[f] = 0;
+        --n_alive;
+        touch_face(f);
+        compacted = edited = true;
+    }
+
+    void add(int32_t a, int32_t b, int32_t c) {
+        const int32_t f = (int32_t)alive.size();
+        F.push_back(a); F.push_back(b); F.push_back(c);
+        alive.push_back(1);
+        is_bnd.resize(F.size(), 0);
+        fstamp.push_back(0);
+        ++n_alive;
+        edited_since_init = true;
+        const int32_t cs[3] = {a, b, c};
+        for (int k = 0; k < 3; ++k) own_list(cs[k]).push_back(3 * f + k);
+        touch_face(f);
+        added.push_back(f);
+        compacted = edited = true;
+    }
+
+    void init(const int32_t* faces, int64_t nf, int32_t nv,
+              const uint8_t* remove) {
+        nv0 = nvt = nv;
+        F.assign(faces, faces + 3 * nf);
+        alive.assign(nf, 1);
+        off.assign(nv + 1, 0);
+        n_alive = 0;
+        if (remove != nullptr) compacted = edited = true;
+        for (int64_t f = 0; f < nf; ++f) {
+            const int32_t* c = &F[3 * f];
+            if (remove != nullptr && (remove[c[0]] || remove[c[1]]
+                                      || remove[c[2]])) {
+                alive[f] = 0;
+                continue;
+            }
+            ++n_alive;
+            ++off[c[0] + 1]; ++off[c[1] + 1]; ++off[c[2] + 1];
+        }
+        for (int32_t v = 0; v < nv; ++v) off[v + 1] += off[v];
+        lst.resize(off[nv]);
+        {
+            std::vector<int32_t> cur(off.begin(), off.end() - 1);
+            for (int64_t f = 0; f < nf; ++f) {
+                if (!alive[f]) continue;
+                const int32_t* c = &F[3 * f];
+                const int32_t h = (int32_t)(3 * f);
+                lst[cur[c[0]]++] = {h, c[1], c[2]};
+                lst[cur[c[1]]++] = {h + 1, c[2], c[0]};
+                lst[cur[c[2]]++] = {h + 2, c[0], c[1]};
+            }
+        }
+        dyn_idx.assign(nv, -1);
+        vstamp.assign(nv, 0);
+        fstamp.assign(nf, 0);
+        is_bnd.assign(3 * nf, 0);
+        hyg0.assign(nf, 0);
+        uf.resize(nv);
+        for (int32_t v = 0; v < nv; ++v) uf[v] = v;
+
+        // the first look: hygiene flags, boundary, pinch candidates,
+        // components
+        for (int64_t f = 0; f < nf; ++f) {
+            const int32_t a = F[3 * f], b = F[3 * f + 1], c = F[3 * f + 2];
+            if (alive[f] && (a == b || b == c || a == c)) hyg0[f] = 1;
+        }
+        for (int32_t v = 0; v < nv; ++v) {
+            const int k = off[v + 1] - off[v];
+            if (k == 0) continue;
+            const OutEdge* e = &lst[off[v]];
+            sP.resize(k);
+            for (int i = 0; i < k; ++i) {
+                const int32_t b = e[i].b;
+                int nd = 0, nr = 0, jr = -1;
+                for (int j = 0; j < k; ++j) {
+                    nd += e[j].b == b;
+                    nr += e[j].c == b;
+                    jr = e[j].c == b ? j : jr;
+                }
+                sP[i] = (nd == 1 && nr == 1) ? jr : -1;
+                const int32_t h = e[i].h;
+                if (sP[i] < 0) { is_bnd[h] = 1; bnd.push_back(h); }
+                if ((b == v ? nd : nd + nr) > 2) hyg0[h / 3] = 1;
+                // a duplicate: an earlier face of the same vertex set,
+                // looked for at the set's lowest vertex.  Through a
+                // halfedge with a twin, only the twin's face can be
+                // one (a same-winding copy would double the halfedge)
+                const int32_t lo = std::min(b, e[i].c);
+                if (lo < v) continue;
+                // components: each face joined at its lowest corner
+                uf_union(v, b);
+                uf_union(v, e[i].c);
+                const int32_t f = h / 3;
+                if (sP[i] >= 0) {
+                    const OutEdge& t = e[sP[i]];
+                    if (t.b == e[i].c && t.h / 3 < f) hyg0[f] = 1;
+                    continue;
+                }
+                const int32_t hi = std::max(b, e[i].c);
+                for (int j = 0; j < k; ++j) {
+                    if (e[j].h / 3 < f && std::min(e[j].b, e[j].c) == lo
+                        && std::max(e[j].b, e[j].c) == hi) {
+                        hyg0[f] = 1;
+                        break;
+                    }
+                }
+            }
+            if (k > kFanConverges || !one_fan(k)) pinch0.push_back(v);
+        }
+        std::sort(bnd.begin(), bnd.end());
+    }
+
+    // sP's k halfedges form one orbit of h -> next(twin(h))
+    bool one_fan(int k) {
+        // sP is one-to-one, so the walk from halfedge 0 comes back to
+        // it (a closed fan) or ends (a fan with a boundary)
+        int n = 1, x = sP[0];
+        while (x > 0) { x = sP[x]; ++n; }
+        if (x == 0) return n == k;
+        // an open fan: walk back from halfedge 0 too
+        std::vector<int32_t>& inv = fan_inv;
+        std::vector<int32_t>& seen = fan_seen;
+        inv.assign(k, -1);
+        seen.assign(k, 0);
+        for (int i = 0; i < k; ++i)
+            if (sP[i] >= 0) inv[sP[i]] = i;
+        n = 1;
+        x = 0;
+        seen[0] = 1;
+        while (sP[x] >= 0 && !seen[sP[x]]) { x = sP[x]; seen[x] = 1; ++n; }
+        x = 0;
+        while (inv[x] >= 0 && !seen[inv[x]]) { x = inv[x]; seen[x] = 1; ++n; }
+        return n == k;
+    }
+
+    // stamps only grow within a call: a call makes far fewer than 2^31
+    int32_t next_stamp() { return ++stamp; }
+
+    int32_t uf_find(int32_t x) {
+        while (uf[x] != x) {
+            uf[x] = uf[uf[x]];
+            x = uf[x];
+        }
+        return x;
+    }
+
+    void uf_union(int32_t a, int32_t b) {
+        a = uf_find(a);
+        b = uf_find(b);
+        if (a != b) uf[std::max(a, b)] = std::min(a, b);
+    }
+
+    // degenerate | duplicate (not the first face of its vertex set) |
+    // on an undirected edge of more than two halfedges; true when any
+    // face went
+    bool hygiene() {
+        std::vector<int32_t> bad;
+        if (hyg_first) {
+            hyg_first = false;
+            for (size_t f = 0; f < hyg0.size(); ++f)
+                if (hyg0[f] && alive[f]) bad.push_back((int32_t)f);
+            std::vector<uint8_t>().swap(hyg0);
+        } else {
+            // only faces appended since the last look can be bad: kills
+            // and splits make no face bad, and a duplicate pair's later
+            // face is the appended one
+            for (size_t i = cur_hyg; i < added.size(); ++i) {
+                const int32_t f = added[i];
+                if (!alive[f]) continue;
+                const int32_t c[3] = {F[3 * f], F[3 * f + 1], F[3 * f + 2]};
+                if (c[0] == c[1] || c[1] == c[2] || c[0] == c[2]) {
+                    bad.push_back(f);
+                    continue;
+                }
+                const int32_t lo = std::min(c[0], std::min(c[1], c[2]));
+                const int32_t hi = std::max(c[0], std::max(c[1], c[2]));
+                const int32_t mid = (int32_t)((int64_t)c[0] + c[1] + c[2]
+                                              - lo - hi);
+                for_out(lo, [&](int32_t h) {
+                    const int32_t g = h / 3;
+                    const int32_t b = F[nxt(h)], cc = F[prv(h)];
+                    if (g < f && std::min(b, cc) == mid
+                        && std::max(b, cc) == hi)
+                        bad.push_back(f);
+                });
+                for (int e = 0; e < 3; ++e) {
+                    const int32_t a = c[e], b = c[(e + 1) % 3];
+                    const int k = gather(a);
+                    for (int i2 = 0; i2 < k; ++i2) {
+                        if (sB[i2] != b || sN[i2] <= 2) continue;
+                        for (int j = 0; j < k; ++j)
+                            if (sB[j] == b || sC[j] == b)
+                                bad.push_back(sH[j] / 3);
+                        break;
+                    }
+                }
+            }
+        }
+        cur_hyg = added.size();
+        if (bad.empty()) return false;
+        for (int32_t f : bad) kill(f);
+        return true;
+    }
+
+    // components under kDebrisFaces faces, when there is more than one
+    // component; true when any went (numpy's _drop_debris)
+    bool debris() {
+        if (debris_first || n_alive < kDebrisGlobal) {
+            const bool first = debris_first;
+            debris_first = false;
+            cur_debris = touched.size();
+            // the first look comes before any fill or split, so the
+            // input's lists still hold every live face's corners
+            return first && !edited_since_init ? debris_first_look()
+                                               : debris_global();
+        }
+        // one stamp a search: a vertex stamped by an earlier search of
+        // this look lies in a component of kDebrisFaces or more (the
+        // small ones are closed, so no search reaches into them)
+        const int32_t st0 = stamp + 1;
+        std::vector<int32_t> small_faces, queue, comp_faces;
+        int n_small = 0;
+        const size_t end = touched.size();
+        for (size_t t = cur_debris; t < end; ++t) {
+            const int32_t s = touched[t];
+            if (vstamp[s] >= st0 || !live_vertex(s)) continue;
+            const int32_t cur = ++stamp;
+            queue.clear();
+            comp_faces.clear();
+            queue.push_back(s);
+            vstamp[s] = cur;
+            bool is_big = false;
+            for (size_t qi = 0; qi < queue.size() && !is_big; ++qi) {
+                for_out(queue[qi], [&](int32_t h) {
+                    if (is_big) return;
+                    const int32_t g = h / 3;
+                    if (fstamp[g] != cur) {
+                        fstamp[g] = cur;
+                        comp_faces.push_back(g);
+                        if ((int)comp_faces.size() >= kDebrisFaces) {
+                            is_big = true;
+                            return;
+                        }
+                    }
+                    const int32_t w[2] = {F[nxt(h)], F[prv(h)]};
+                    for (int32_t x : w) {
+                        if (vstamp[x] == cur) continue;
+                        if (vstamp[x] >= st0) {
+                            is_big = true;
+                            return;
+                        }
+                        vstamp[x] = cur;
+                        queue.push_back(x);
+                    }
+                });
+            }
+            if (is_big) continue;
+            ++n_small;
+            small_faces.insert(small_faces.end(), comp_faces.begin(),
+                               comp_faces.end());
+        }
+        cur_debris = end;
+        if (n_small == 0) return false;
+        if (n_small == 1 && (int64_t)small_faces.size() == n_alive)
+            return false;              // one component: numpy keeps it
+        for (int32_t g : small_faces) kill(g);
+        return true;
+    }
+
+    // the first look's components, from the sweep's union-find, while
+    // no face has gone since
+    bool debris_first_look() {
+        std::vector<int64_t> corners(nv0, 0);
+        for (int32_t v = 0; v < nv0; ++v)
+            corners[uf_find(v)] += off[v + 1] - off[v];
+        int64_t n = 0;
+        bool any_small = false;
+        for (int32_t v = 0; v < nv0; ++v) {
+            if (uf[v] != v) continue;
+            // numpy's vertices: every input vertex until its first
+            // compaction, the used ones after
+            if (corners[v] == 0 && compacted) continue;
+            ++n;
+            any_small |= corners[v] / 3 < kDebrisFaces;
+        }
+        if (n <= 1 || !any_small) return false;
+        for (int32_t v = 0; v < nv0; ++v)
+            if (corners[uf_find(v)] / 3 < kDebrisFaces)
+                for (int32_t p = off[v]; p < off[v + 1]; ++p)
+                    kill(lst[p].h / 3);
+        compacted = edited = true;
+        return true;
+    }
+
+    bool debris_global() {
+        std::vector<int32_t> parent(nvt);
+        for (int32_t v = 0; v < nvt; ++v) parent[v] = v;
+        auto find = [&parent](int32_t x) {
+            while (parent[x] != x) {
+                parent[x] = parent[parent[x]];
+                x = parent[x];
+            }
+            return x;
+        };
+        std::vector<uint8_t> used(nvt, 0);
+        const int64_t nf = (int64_t)alive.size();
+        for (int64_t f = 0; f < nf; ++f) {
+            if (!alive[f]) continue;
+            const int32_t a = F[3 * f], b = F[3 * f + 1], c = F[3 * f + 2];
+            used[a] = used[b] = used[c] = 1;
+            const int32_t ra = find(a), rb = find(b);
+            if (ra != rb) parent[ra] = rb;
+            const int32_t r = find(b), rc = find(c);
+            if (rc != r) parent[rc] = r;
+        }
+        std::vector<int32_t> size(nvt, 0);
+        for (int64_t f = 0; f < nf; ++f)
+            if (alive[f]) ++size[find(F[3 * f])];
+        // numpy's vertices: every input vertex until its first
+        // compaction, the used ones after
+        int64_t n = 0;
+        bool any_small = false;
+        for (int32_t v = 0; v < nvt; ++v) {
+            if (!(used[v] || (!compacted && v < nv0))) continue;
+            if (find(v) != v) continue;
+            ++n;
+            if (size[v] < kDebrisFaces) any_small = true;
+        }
+        if (n <= 1 || !any_small) return false;
+        for (int64_t f = 0; f < nf; ++f)
+            if (alive[f] && size[find(F[3 * f])] < kDebrisFaces)
+                kill((int32_t)f);
+        compacted = edited = true;
+        return true;
+    }
+
+    // the live boundary halfedges, ascending (numpy's halfedge order)
+    void boundary() {
+        const int32_t st = next_stamp();
+        const size_t end = touched.size();
+        for (size_t t = cur_bnd; t < end; ++t) {
+            const int32_t v = touched[t];
+            if (vstamp[v] == st) continue;
+            vstamp[v] = st;
+            const int k = gather(v);
+            for (int i = 0; i < k; ++i) {
+                is_bnd[sH[i]] = sP[i] < 0;
+                if (sP[i] < 0) bnd.push_back(sH[i]);
+            }
+        }
+        cur_bnd = end;
+        size_t m = 0;
+        for (int32_t h : bnd)
+            if (alive[h / 3] && is_bnd[h]) bnd[m++] = h;
+        bnd.resize(m);
+        std::sort(bnd.begin(), bnd.end());
+        bnd.erase(std::unique(bnd.begin(), bnd.end()), bnd.end());
+    }
+
+    // numpy's boundary_loops walk over bnd: loops of positions in bnd
+    void loops(std::vector<std::vector<int32_t>>& out) const {
+        const int nb = (int)bnd.size();
+        // src map: positions by source vertex, ascending halfedge
+        std::vector<std::pair<int32_t, int32_t>> by_src(nb);
+        for (int p = 0; p < nb; ++p) by_src[p] = {F[bnd[p]], p};
+        std::sort(by_src.begin(), by_src.end());
+        std::vector<uint8_t> visited(nb, 0);
+        out.clear();
+        for (int p0 = 0; p0 < nb; ++p0) {
+            if (visited[p0]) continue;
+            std::vector<int32_t> loop;
+            int p = p0, guard = 0;
+            while (!visited[p] && guard <= nb) {
+                visited[p] = 1;
+                loop.push_back(p);
+                const int32_t to = F[nxt(bnd[p])];
+                auto it = std::lower_bound(
+                    by_src.begin(), by_src.end(),
+                    std::make_pair(to, (int32_t)INT32_MIN));
+                int q = -1;
+                for (; it != by_src.end() && it->first == to; ++it) {
+                    const int c = it->second;
+                    if (!visited[c] || (c == p0 && loop.size() > 1)) {
+                        q = c;
+                        break;
+                    }
+                }
+                if (q < 0 || q == p0) break;
+                p = q;
+                ++guard;
+            }
+            out.push_back(std::move(loop));
+        }
+    }
+
+    // one fill pass over the current boundary (numpy's loop body).
+    // After the hygiene each vertex has as many outgoing as incoming
+    // boundary halfedges, so every walk closes, and no ring is made of
+    // 2-cycles alone (that needs an over-shared edge): the numpy
+    // erosion never runs, and meeting it throws OpenWalk
+    void fill() {
+        std::vector<std::vector<int32_t>> lps;
+        loops(lps);
+        counts[kHoles] += (int64_t)lps.size();
+        std::vector<int32_t> tris;
+        std::vector<int32_t> ring, stack;
+        std::unordered_map<int32_t, int32_t> pos;
+        auto zig_zag = [&tris](const std::vector<int32_t>& cyc) {
+            // numpy's zig_zag_triangulate(cyc[::-1])
+            const int n = (int)cyc.size();
+            auto r = [&cyc, n](int i) { return cyc[n - 1 - i]; };
+            int lo = 0, hi = n - 1;
+            bool take_lo = true;
+            while (hi - lo >= 2) {
+                if (take_lo) {
+                    tris.push_back(r(lo)); tris.push_back(r(lo + 1));
+                    tris.push_back(r(hi));
+                    ++lo;
+                } else {
+                    tris.push_back(r(lo)); tris.push_back(r(hi - 1));
+                    tris.push_back(r(hi));
+                    --hi;
+                }
+                take_lo = !take_lo;
+            }
+        };
+        for (const auto& lp : lps) {
+            ring.clear();
+            for (int32_t p : lp) ring.push_back(F[bnd[p]]);
+            const bool closed = ring.size() >= 3
+                && F[nxt(bnd[lp.back()])] == ring[0];
+            if (!closed) throw OpenWalk();
+            // numpy's _simple_cycles
+            stack.clear();
+            pos.clear();
+            for (int32_t v : ring) {
+                auto it = pos.find(v);
+                if (it != pos.end()) {
+                    const int32_t i = it->second;
+                    std::vector<int32_t> cyc(stack.begin() + i, stack.end());
+                    for (int32_t u : cyc) pos.erase(u);
+                    stack.resize(i);
+                    if (cyc.size() >= 3) zig_zag(cyc);
+                }
+                pos[v] = (int32_t)stack.size();
+                stack.push_back(v);
+            }
+            if (stack.size() >= 3) zig_zag(stack);
+        }
+        if (tris.empty()) throw OpenWalk();
+        for (size_t t = 0; t < tris.size(); t += 3)
+            add(tris[t], tris[t + 1], tris[t + 2]);
+        counts[kAdded] += (int64_t)(tris.size() / 3);
+        ++counts[kPasses];
+        edited = true;
+    }
+
+    void passes(int max_passes) {
+        for (int p = 0; p < max_passes; ++p) {
+            if (n_alive == 0) return;
+            if (hygiene() || debris()) {
+                ++counts[kPasses];
+                continue;
+            }
+            boundary();
+            if (bnd.empty()) break;
+            fill();
+        }
+    }
+
+    // numpy's split_pinched_vertices: a vertex whose outgoing halfedges
+    // carry more than one fan label after the label propagation keeps
+    // its lowest-labelled fan; each other fan gets a copy, numbered in
+    // (vertex, label) order
+    void split() {
+        std::vector<int32_t> cand;
+        if (split_first) {
+            split_first = false;
+            cand.swap(pinch0);
+        }
+        cand.insert(cand.end(), touched.begin() + cur_split, touched.end());
+        cur_split = touched.size();
+        std::sort(cand.begin(), cand.end());
+        cand.erase(std::unique(cand.begin(), cand.end()), cand.end());
+        struct Group { int32_t v; std::vector<int32_t> hs; };
+        std::vector<Group> groups;
+        std::vector<int32_t> inv, lab, nlab, order;
+        for (int32_t v : cand) {
+            const int k = gather(v);
+            if (k == 0) continue;
+            inv.assign(k, -1);
+            for (int i = 0; i < k; ++i)
+                if (sP[i] >= 0) inv[sP[i]] = i;
+            lab.assign(sH.begin(), sH.end());
+            nlab.resize(k);
+            for (int r = 0; r < kFanRounds; ++r) {
+                bool same = true;
+                for (int i = 0; i < k; ++i) {
+                    int32_t m = std::min(lab[i], lab[sP[i] >= 0 ? sP[i] : i]);
+                    if (inv[i] >= 0) m = std::min(m, lab[inv[i]]);
+                    nlab[i] = m;
+                    same &= m == lab[i];
+                }
+                if (same) break;
+                lab.swap(nlab);
+            }
+            order.resize(k);
+            for (int i = 0; i < k; ++i) order[i] = i;
+            std::sort(order.begin(), order.end(), [&lab](int a, int b) {
+                return lab[a] != lab[b] ? lab[a] < lab[b] : a < b;
+            });
+            // the first label keeps v
+            for (int i = 0; i < k;) {
+                int j = i;
+                while (j < k && lab[order[j]] == lab[order[i]]) ++j;
+                if (i > 0) {
+                    Group g{v, {}};
+                    for (int t = i; t < j; ++t) g.hs.push_back(sH[order[t]]);
+                    std::sort(g.hs.begin(), g.hs.end());
+                    groups.push_back(std::move(g));
+                }
+                i = j;
+            }
+        }
+        for (auto& g : groups) {
+            const int32_t u = nvt++;
+            origin.push_back(g.v < nv0 ? g.v : origin[g.v - nv0]);
+            dyn_idx.push_back(-1);
+            vstamp.push_back(0);
+            std::vector<int32_t>& lv = own_list(g.v);
+            std::vector<int32_t> keep;
+            for (int32_t h : lv)
+                if (!std::binary_search(g.hs.begin(), g.hs.end(), h))
+                    keep.push_back(h);
+            lv.swap(keep);
+            for (int32_t h : g.hs) F[h] = u;
+            dyn_idx[u] = (int32_t)dyn.size();
+            dyn.push_back(g.hs);
+            touched.push_back(g.v);
+            for (int32_t h : g.hs) touch_face(h / 3);
+        }
+        counts[kSplit] += (int64_t)groups.size();
+        if (!groups.empty()) edited = edited_since_init = true;
+    }
+
+    void run(int max_passes) {
+        for (int round = 0; round < 2; ++round) {
+            passes(max_passes);
+            if (n_alive == 0) return;
+            split();
+            debris();
+            boundary();
+            if (bnd.empty()) return;
+        }
+    }
+};
+
+}  // namespace
+
+extern "C" {
+
+// Removal (vertices flagged in `remove`, may be null) and repair of a
+// (nv, nf) mesh; returns a handle for repair_fetch_native, or null when
+// memory ran out (sizes[2] 0) or a boundary walk did not close
+// (sizes[2] -1).  sizes: vertices out, faces out, 1 when the mesh
+// changed; counts: holes, passes, faces added, split vertices
+// (native.REPAIR_COUNTS).
+void* repair_native(const int32_t* faces, int64_t nf, int32_t nv,
+                    const uint8_t* remove, int max_passes,
+                    int64_t* sizes, int64_t* counts) {
+    RepairEngine* e = nullptr;
+    try {
+        e = new RepairEngine();
+        e->init(faces, nf, nv, remove);
+        e->run(max_passes);
+        // the numpy passes' compaction: used vertices in id order
+        std::vector<int32_t>& remap = e->vstamp;
+        remap.assign(e->nvt, -1);
+        const int64_t nft = (int64_t)e->alive.size();
+        for (int64_t f = 0; f < nft; ++f)
+            if (e->alive[f])
+                for (int k = 0; k < 3; ++k) remap[e->F[3 * f + k]] = 0;
+        int32_t n = 0;
+        for (int32_t v = 0; v < e->nvt; ++v)
+            if (remap[v] >= 0) remap[v] = n++;
+        sizes[0] = n;
+        sizes[1] = e->n_alive;
+        sizes[2] = (e->edited || n != nv) ? 1 : 0;
+        for (int c = 0; c < kRepairCounts; ++c) counts[c] = e->counts[c];
+        return e;
+    } catch (const std::bad_alloc&) {
+        delete e;
+        return nullptr;
+    } catch (const OpenWalk&) {
+        delete e;
+        sizes[2] = -1;
+        return nullptr;
+    }
+}
+
+// writes a repair_native result out (faces (sizes[1], 3), and per
+// output vertex the input vertex it is) and frees it
+void repair_fetch_native(void* handle, int32_t* faces_out,
+                         int32_t* vmap_out) {
+    auto* e = static_cast<RepairEngine*>(handle);
+    const std::vector<int32_t>& remap = e->vstamp;
+    const int64_t nft = (int64_t)e->alive.size();
+    int64_t t = 0;
+    for (int64_t f = 0; f < nft; ++f)
+        if (e->alive[f])
+            for (int k = 0; k < 3; ++k)
+                faces_out[t++] = remap[e->F[3 * f + k]];
+    for (int32_t v = 0; v < e->nvt; ++v)
+        if (remap[v] >= 0)
+            vmap_out[remap[v]] = v < e->nv0 ? v : e->origin[v - e->nv0];
+    delete e;
+}
+
+}  // extern "C"

@@ -156,6 +156,22 @@ def test_remove_necks_bit_identical(dumbbell, detector):
     assert (tm.halfedges.twin >= 0).all()
 
 
+@pytest.mark.parametrize('quantile', [0.01, 0.05])
+def test_remove_necks_noisy_sphere_bit_identical(noisy_sphere, quantile):
+    """The threshold detector at a low quantile of the noisy sphere's
+    curvature cuts scattered small holes, which the port's repair closes
+    (in one native call) into the JAX package's mesh, vertex for
+    vertex."""
+    v, f = noisy_sphere
+    jm, tm = both(v, f, smooth_curvature=True)
+    lo = float(np.quantile(tm.curvature_gaussian, quantile))
+    jm.remove_necks(lo, 1e6)
+    flagged, removed = tm.remove_necks(lo, 1e6)
+    assert 0 < removed == flagged < 0.25 * len(v)
+    assert_same_mesh(jm, tm)
+    assert tm.is_manifold
+
+
 def test_separator_spares_noisy_sphere(noisy_sphere):
     """Noise saddles that the threshold would flag disconnect nothing:
     the separator removes no vertex in either package."""

@@ -237,6 +237,43 @@ def test_short_edge_pass_spans():
                      'short_edges/inner', 'short_edges']
 
 
+def test_neck_repair_spans_carry_the_repair_counts(fit):
+    """The fit's neck pass removes vertices: its ``repair`` span holds
+    the repair's counts, holes found and filled in at least one pass."""
+    recs = [r for r in fit['mesh'].trace.records
+            if r.kind == 'remove_necks/repair']
+    assert recs
+    for r in recs:
+        assert list(r.extra) == list(native.REPAIR_COUNTS)
+        assert r.extra['holes'] > 0 and r.extra['passes'] >= 1
+        assert r.extra['faces_added'] > 0
+    for r in fit['mesh'].trace.records:
+        if r.kind == 'short_edges/repair':
+            assert list(r.extra) == list(native.REPAIR_COUNTS)
+
+
+def test_repair_with_nothing_to_do_records_zeros():
+    """Flagging every vertex of a small sphere apart from a large one
+    removes it whole and leaves no hole: the ``repair`` span records
+    zeros."""
+    v, f = icosphere(4, radius=50.0)
+    v2, f2 = icosphere(1, radius=5.0)
+    verts = np.vstack([v, v2 + np.float32(80.0)]).astype(np.float32)
+    faces = np.vstack([f, f2 + len(v)]).astype(np.int32)
+    mesh = MembraneMesh(verts, faces, device='cpu')
+    K = np.zeros(len(verts))
+    K[len(v):] = 1.0                       # above the high threshold
+    mesh._curv_state = {'K': K}
+    with mesh.trace.span('remove_necks'):
+        assert mesh.remove_necks(-1e-3, 1e-2, defer_remesh=True) == \
+            (len(v2), len(v2))
+    rec = [r for r in mesh.trace.records if r.kind == 'remove_necks/repair']
+    assert len(rec) == 1
+    assert rec[0].extra == dict.fromkeys(native.REPAIR_COUNTS, 0)
+    np.testing.assert_array_equal(mesh.vertices, v)
+    np.testing.assert_array_equal(mesh.faces, f)
+
+
 def test_span_at_finds_the_innermost_span():
     trace = FitTrace()
     with trace.span('a'):
