@@ -14,13 +14,17 @@ I/O — re-designed for a TPU-first pipeline:
   ``membrane_mesh_utils.h:26``), normals, areas and components are
   *derived* caches, recomputed vectorized after each topology change;
 * topology edits (remesh passes, vertex removal, hole filling) emit a
-  new (V, F) pair rather than editing in place: batched numpy passes,
-  or one call into the native engine that gives the same arrays.
+  new (V, F) pair rather than editing in place;
+* the twins, components, fan test, one-ring smoothing, repair and
+  Hilbert codes run in the native host engine (``native/``) at every
+  mesh size.
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+from .. import native
 
 NEIGHBORSIZE = 20
 
@@ -59,45 +63,8 @@ class HalfedgeTables:
         self._positions = positions
         self._length = None
 
-        V = positions.shape[0]
-        if nhe >= 8192:  # small meshes: numpy is fine, skip the FFI hop
-            from ..native import halfedge_twins
-            self.twin, self.nonmanifold_edges, self.vertex_halfedge = \
-                halfedge_twins(faces, V)
-        else:
-            key = self.src.astype(np.int64) * V + self.vertex
-            tkey = self.vertex.astype(np.int64) * V + self.src
-            order = np.argsort(key, kind='stable')
-            skey = key[order]
-            pos = np.searchsorted(skey, tkey)
-            pos_c = np.clip(pos, 0, nhe - 1) if nhe else pos
-            cand = order[pos_c] if nhe else np.zeros(0, np.int32)
-            twin = np.where((pos < nhe) & (skey[pos_c] == tkey), cand, -1)
-
-            # Non-manifold: a directed edge that appears more than once
-            # makes twin matching ambiguous; disconnect all copies.
-            dup = np.zeros(nhe, dtype=bool)
-            if nhe:
-                same = skey[1:] == skey[:-1]
-                dup_sorted = np.zeros(nhe, dtype=bool)
-                dup_sorted[1:] |= same
-                dup_sorted[:-1] |= same
-                dup[order] = dup_sorted
-            dup_t = dup | (twin >= 0) & dup[np.clip(twin, 0, None)]
-            self.nonmanifold_edges = dup
-            twin = np.where(dup_t, -1, twin).astype(np.int32)
-            # a twin must point back; if not (one side dup-marked), sever
-            back = np.full(nhe, -1, np.int32)
-            has = twin >= 0
-            back[has] = twin[twin[has]]
-            twin = np.where(has & (back != np.arange(nhe, dtype=np.int32)),
-                            -1, twin)
-            self.twin = twin
-
-            self.vertex_halfedge = np.full(V, -1, np.int32)
-            # last write wins -> the lowest outgoing halfedge id
-            self.vertex_halfedge[self.src[::-1]] = np.arange(
-                nhe - 1, -1, -1, dtype=np.int32)
+        self.twin, self.nonmanifold_edges, self.vertex_halfedge = \
+            native.halfedge_twins(faces, positions.shape[0])
 
     @property
     def length(self) -> np.ndarray:
@@ -285,7 +252,6 @@ class TriangleMesh:
         if self._he is not None:
             val = float(np.mean(self._he.length))
         else:
-            from .. import native
             val = native.mean_edge(self._vertices, self._faces)
         self._mean_edge_cache = (key, val)
         return val
@@ -333,47 +299,14 @@ class TriangleMesh:
     def _has_nonmanifold_vertices(self) -> bool:
         """A vertex whose incident faces don't form a single fan."""
         he = self.halfedges
-        V = self._vertices.shape[0]
-        if len(he.src) >= 4096:
-            from .. import native
-            return native.has_nonmanifold_vertices(
-                he.src, he.vertex, he.twin, he.next, V)
-        # count distinct one-ring walk components per vertex via union-find
-        # over outgoing halfedges: h ~ next(twin(h)) shares the same fan.
-        parent = np.arange(len(he.src), dtype=np.int64)
-
-        def find(x):
-            while parent[x] != x:
-                parent[x] = parent[parent[x]]
-                x = parent[x]
-            return x
-
-        has_twin = he.twin >= 0
-        partner = he.next[he.twin[has_twin]]
-        for a, b in zip(np.flatnonzero(has_twin), partner):
-            ra, rb = find(a), find(b)
-            if ra != rb:
-                parent[ra] = rb
-        roots = np.array([find(i) for i in range(len(he.src))])
-        n_fans = len(set(zip(he.src.tolist(), roots.tolist())))
-        n_used = len(np.unique(he.src))
-        return n_fans != n_used
+        return native.has_nonmanifold_vertices(
+            he.src, he.vertex, he.twin, he.next, self._vertices.shape[0])
 
     def connected_components(self):
         """(labels_per_vertex, n_components) over the edge graph."""
         if self._vertex_components_cache is None:
-            V = self._vertices.shape[0]
-            if self._faces.shape[0] >= 4096:
-                from .. import native
-                labels, n = native.vertex_components(self._faces, V)
-            else:
-                from scipy.sparse import coo_matrix
-                from scipy.sparse.csgraph import connected_components
-                he = self.halfedges
-                g = coo_matrix((np.ones(len(he.src), np.int8),
-                                (he.src, he.vertex)), shape=(V, V))
-                n, labels = connected_components(g, directed=False)
-            self._vertex_components_cache = (labels, n)
+            self._vertex_components_cache = native.vertex_components(
+                self._faces, self._vertices.shape[0])
         return self._vertex_components_cache
 
     @property
@@ -469,7 +402,6 @@ class TriangleMesh:
         inv[vperm] = np.arange(len(vperm))
         new_v = self._vertices[vperm]
         new_f = inv[self._faces].astype(np.int32)
-        from .. import native
         # fused native centroid+code pass (bit-exact twin of
         # hilbert_order(new_v[new_f].mean(1)); ~110 -> ~8 ms at 164k, a
         # per-remesh-boundary cost in the fit loop)
@@ -497,11 +429,12 @@ class TriangleMesh:
 
         One native call does the removal and every pass on one
         halfedge structure, revisiting only the faces around the holes;
-        its arrays equal those of the numpy passes
-        (:meth:`_repair_numpy`) bit for bit.  The numpy passes erode a
-        boundary walk that does not close; after the hygiene every walk
-        closes (each vertex has as many outgoing as incoming boundary
-        halfedges), so the native call raises instead of eroding.
+        its arrays equal those of the numpy reference passes
+        (``tests/torch_host_reference.py``) bit for bit.  The numpy
+        passes erode a boundary walk that does not close; after the
+        hygiene every walk closes (each vertex has as many outgoing as
+        incoming boundary halfedges), so the native call raises instead
+        of eroding.
 
         Two departures from the JAX package's ``repair``, which returns
         before the split when the holes close (and so can leave pinch
@@ -510,7 +443,6 @@ class TriangleMesh:
         hole's ring can keep the fill from closing the hole) the passes
         run once more.
         """
-        from .. import native
         mask = None
         if remove is not None:
             mask = np.zeros(self._vertices.shape[0], dtype=bool)
@@ -522,167 +454,6 @@ class TriangleMesh:
             self.set_topology(self._vertices[vmap], faces)
             self.extra_vertex_data = extra
         return counts
-
-    def _repair_numpy(self, max_passes=8, remove=None):
-        """:meth:`repair` as numpy passes over the whole mesh: the
-        reference that the tests hold the native call to."""
-        from ..native import REPAIR_COUNTS
-        counts = dict.fromkeys(REPAIR_COUNTS, 0)
-        if remove is not None:
-            self.unsafe_remove_vertices(remove)
-        for _ in range(2):
-            self._repair_passes(max_passes, counts)
-            if self._faces.size == 0:
-                break
-            counts['split_vertices'] += self.split_pinched_vertices()
-            self._drop_debris()
-            if not self.boundary_loops():
-                break
-        return counts
-
-    def _repair_passes(self, max_passes, counts):
-        """The JAX package's repair passes, up to ``max_passes``; adds
-        its work to ``counts``."""
-        for _ in range(max_passes):
-            f = self._faces
-            if f.size == 0:
-                return
-            bad = None
-            if len(f) >= 4096:
-                from .. import native
-                bad = native.face_hygiene(f, self._vertices.shape[0])
-            if bad is None:
-                # degenerate + duplicate faces
-                degen = ((f[:, 0] == f[:, 1]) | (f[:, 1] == f[:, 2])
-                         | (f[:, 0] == f[:, 2]))
-                key = np.sort(f, axis=1)
-                if self._vertices.shape[0] < (1 << 21):
-                    # pack the sorted triple into one int64 (unique on
-                    # a packed key is ~10x unique(axis=0) at 300k faces)
-                    pkey = ((key[:, 0].astype(np.int64) << 42)
-                            | (key[:, 1].astype(np.int64) << 21)
-                            | key[:, 2].astype(np.int64))
-                    _, first_idx = np.unique(pkey, return_index=True)
-                else:
-                    _, first_idx = np.unique(key, axis=0,
-                                             return_index=True)
-                dup = np.ones(len(f), dtype=bool)
-                dup[first_idx] = False
-                # faces on non-manifold undirected edges (>2 incidences)
-                a = f
-                b = f[:, [1, 2, 0]]
-                lo = np.minimum(a, b)
-                hi = np.maximum(a, b)
-                ekey = (lo.astype(np.int64) << 32
-                        | hi.astype(np.int64)).ravel()
-                uniq, inv, n_inc = np.unique(ekey, return_inverse=True,
-                                             return_counts=True)
-                over = (n_inc[inv] > 2).reshape(f.shape).any(1)
-                bad = degen | dup | over
-            if bad.any():
-                self._compact(f[~bad])
-                counts['passes'] += 1
-                continue
-
-            if self._drop_debris():
-                counts['passes'] += 1
-                continue
-
-            loops = self.boundary_loops()
-            if not loops:
-                break
-            he = self.halfedges
-            new_tris = []
-            erode = set()
-            counts['holes'] += len(loops)
-            counts['passes'] += 1
-            for loop in loops:
-                ring = he.src[loop]
-                closed = (len(ring) >= 3
-                          and he.vertex[loop[-1]] == ring[0])
-                if closed:
-                    for cyc in _simple_cycles(ring):
-                        if len(cyc) >= 3:
-                            new_tris.append(zig_zag_triangulate(cyc[::-1]))
-                else:
-                    erode.update(he.face[loop].tolist())
-            faces = self._faces
-            if erode:
-                keep = np.ones(len(faces), dtype=bool)
-                keep[list(erode)] = False
-                faces = faces[keep]
-            if new_tris:
-                faces = np.vstack([faces] + new_tris)
-                counts['faces_added'] += sum(len(t) for t in new_tris)
-            if not erode and not new_tris:
-                # unfixable ring shapes: erode everything on a boundary
-                bset = np.unique(he.face[np.flatnonzero(he.twin < 0)])
-                keep = np.ones(len(faces), dtype=bool)
-                keep[bset] = False
-                faces = faces[keep]
-            self._compact(np.asarray(faces, dtype=np.int32))
-
-    def _drop_debris(self):
-        """Drop components of fewer than 8 faces; True when any went."""
-        _, n = self.connected_components()
-        if n > 1:
-            fl = self.face_components
-            sizes = np.bincount(fl, minlength=n)
-            if (sizes < 8).any():
-                self.keep_faces(sizes[fl] >= 8)
-                return True
-        return False
-
-    def split_pinched_vertices(self):
-        """Duplicate vertices whose incident faces form more than one
-        fan (pinch points), restoring vertex-manifoldness; a copy
-        carries its vertex's ``extra_vertex_data``.  Returns the number
-        of copies."""
-        he = self.halfedges
-        E = len(he.src)
-        if E == 0:
-            return 0
-        # fan labels: outgoing halfedges h and next[twin[h]] share a fan
-        labels = np.arange(E, dtype=np.int64)
-        has_twin = he.twin >= 0
-        p1 = np.where(has_twin, he.next[np.clip(he.twin, 0, None)],
-                      np.arange(E))
-        # inverse partner: h <- the halfedge whose p1 is h
-        inv = np.full(E, -1, np.int64)
-        inv[p1[has_twin]] = np.flatnonzero(has_twin)
-        for _ in range(64):
-            new = np.minimum(labels, labels[p1])
-            valid_inv = inv >= 0
-            new[valid_inv] = np.minimum(new[valid_inv],
-                                        labels[inv[valid_inv]])
-            if (new == labels).all():
-                break
-            labels = new
-
-        # group (src, fan) -> vertex instance
-        key = he.src.astype(np.int64) << 32 | labels
-        uniq, grp = np.unique(key, return_inverse=True)
-        grp_src = (uniq >> 32).astype(np.int64)
-        # first group per src keeps the original id; extras get new ids
-        # (uniq is sorted with src in the high bits, so the first
-        # occurrence of each src is its first group)
-        _, first_pos = np.unique(grp_src, return_index=True)
-        keep_mask = np.zeros(len(uniq), dtype=bool)
-        keep_mask[first_pos] = True
-        if keep_mask.all():
-            return 0
-        new_id = np.where(keep_mask, grp_src, -1)
-        extra = np.flatnonzero(new_id < 0)
-        new_id[extra] = self._vertices.shape[0] + np.arange(len(extra))
-        new_positions = np.vstack([self._vertices,
-                                   self._vertices[grp_src[extra]]])
-        # rewrite face corners: corner (f, k) owns outgoing halfedge 3f+k
-        new_faces = new_id[grp].reshape(-1, 3).astype(np.int32)
-        extra_data = {k: np.concatenate([v, v[grp_src[extra]]])
-                      for k, v in self.extra_vertex_data.items()}
-        self.set_topology(new_positions, new_faces)
-        self.extra_vertex_data = extra_data
-        return len(extra)
 
     def remove_inner_surfaces(self):
         """Remove connected components nested inside larger components.
@@ -749,20 +520,11 @@ class TriangleMesh:
     # data smoothing
 
     def smooth_per_vertex_data(self, data, n_iter=1):
-        """Average scalar per-vertex data over the one-ring (incl. self)."""
-        nbrs = self.vertex_neighbors
-        data = np.asarray(data)
-        if data.ndim == 1 and len(data) >= 4096:
-            from .. import native
-            return native.smooth_vertex_data(data, nbrs, n_iter=n_iter)
-        mask = nbrs >= 0
-        counts = mask.sum(1) + 1
-        out = np.asarray(data, dtype=np.float64).copy()
-        for _ in range(n_iter):
-            acc = out.copy()
-            acc += np.where(mask, out[np.clip(nbrs, 0, None)], 0.0).sum(1)
-            out = acc / counts
-        return out.astype(np.float32)
+        """Average scalar per-vertex data over the one-ring (incl. self):
+        (V,) data read as float32, accumulated in float64 in
+        neighbour-slot order; returns (V,) float32."""
+        return native.smooth_vertex_data(data, self.vertex_neighbors,
+                                         n_iter=n_iter)
 
     # ------------------------------------------------------------------
     # I/O
@@ -784,51 +546,6 @@ class TriangleMesh:
     @classmethod
     def from_np_stl(cls, v, f, **kw):
         return cls(v, f, **kw)
-
-
-def _simple_cycles(ring: np.ndarray):
-    """Split a closed vertex walk with repeated vertices into simple
-    cycles (pinch points become cycle boundaries)."""
-    out = []
-    stack = []
-    pos = {}
-    for v in ring:
-        v = int(v)
-        if v in pos:
-            i = pos[v]
-            cyc = stack[i:]
-            for u in cyc:
-                pos.pop(u, None)
-            del stack[i:]
-            if len(cyc) >= 3:
-                out.append(np.array(cyc, dtype=ring.dtype))
-        pos[v] = len(stack)
-        stack.append(v)
-    if len(stack) >= 3:
-        out.append(np.array(stack, dtype=ring.dtype))
-    return out
-
-
-def zig_zag_triangulate(ring: np.ndarray) -> np.ndarray:
-    """Triangulate a vertex cycle by alternating ends (zig-zag).
-
-    Counterpart of PYME ``_zig_zag_triangulation`` used in hole punching
-    (_membrane_mesh.pyx:807): consumes the polygon from both ends toward
-    the middle, producing n-2 triangles with reasonable aspect ratios.
-    """
-    n = len(ring)
-    tris = []
-    lo, hi = 0, n - 1
-    take_lo = True
-    while hi - lo >= 2:
-        if take_lo:
-            tris.append((ring[lo], ring[lo + 1], ring[hi]))
-            lo += 1
-        else:
-            tris.append((ring[lo], ring[hi - 1], ring[hi]))
-            hi -= 1
-        take_lo = not take_lo
-    return np.array(tris, dtype=np.int32)
 
 
 def _point_inside(point, tris) -> bool:

@@ -113,9 +113,6 @@ def get_lib():
     lib.halfedge_twins_native.argtypes = [
         i32p, ctypes.c_int, ctypes.c_int, i32p, u8p, i32p]
     lib.halfedge_twins_native.restype = None
-    lib.face_hygiene_native.argtypes = [
-        i32p, ctypes.c_int, ctypes.c_int, u8p]
-    lib.face_hygiene_native.restype = None
     lib.vertex_components_native.argtypes = [
         i32p, ctypes.c_int, ctypes.c_int, i32p]
     lib.vertex_components_native.restype = ctypes.c_int32
@@ -173,6 +170,18 @@ def _f32p(a):
 
 def _i32p(a):
     return a.ctypes.data_as(ctypes.POINTER(ctypes.c_int32))
+
+
+def _checked_faces(faces, n_vertices, name):
+    """``faces`` as C-contiguous (F, 3) int32; ValueError unless every
+    index lies in [0, n_vertices): the engine indexes by them without
+    checks of its own."""
+    f = np.ascontiguousarray(faces, dtype=np.int32)
+    if f.ndim != 2 or f.shape[1] != 3 or (
+            f.size and (f.min() < 0 or f.max() >= n_vertices)):
+        raise ValueError('%s: faces %s must index %d vertices'
+                         % (name, f.shape, n_vertices))
+    return f
 
 
 # the engine's counts, in the order remesh_native writes them
@@ -247,9 +256,9 @@ REPAIR_COUNTS = ('holes', 'passes', 'faces_added', 'split_vertices')
 
 def repair(faces, n_vertices, remove=None, max_passes=8):
     """Native vertex removal and repair, bit-identical to the numpy
-    passes of ``TriangleMesh._repair_numpy``; returns ``(faces, vmap,
-    counts)``, with faces and vmap None when the mesh came out as it
-    went in.
+    reference passes (``tests/torch_host_reference.py``); returns
+    ``(faces, vmap, counts)``, with faces and vmap None when the mesh
+    came out as it went in.
 
     ``remove``: bool (n_vertices,) mask of vertices to delete with
     every face touching them, or None.  ``vmap[i]`` is the input vertex
@@ -261,11 +270,7 @@ def repair(faces, n_vertices, remove=None, max_passes=8):
     not close, which the numpy passes would erode and the hygiene
     leaves none of."""
     lib = get_lib()
-    f = np.ascontiguousarray(faces, dtype=np.int32)
-    if f.ndim != 2 or f.shape[1] != 3 or (
-            f.size and (f.min() < 0 or f.max() >= n_vertices)):
-        raise ValueError('repair: faces %s must index %d vertices'
-                         % (f.shape, n_vertices))
+    f = _checked_faces(faces, n_vertices, 'repair')
     u8p = ctypes.POINTER(ctypes.c_uint8)
     if remove is None:
         rm_ptr = ctypes.cast(None, u8p)
@@ -334,7 +339,7 @@ def halfedge_twins(faces, n_vertices):
     """Native twin/dup/vertex_halfedge arrays for HalfedgeTables;
     returns (twin, dup, vertex_halfedge)."""
     lib = get_lib()
-    f = np.ascontiguousarray(faces, dtype=np.int32)
+    f = _checked_faces(faces, n_vertices, 'halfedge_twins')
     nf = len(f)
     twin = np.empty(3 * nf, np.int32)
     dup = np.empty(3 * nf, np.uint8)
@@ -345,26 +350,11 @@ def halfedge_twins(faces, n_vertices):
     return twin, dup.astype(bool), vhe
 
 
-def face_hygiene(faces, n_vertices):
-    """Per-face bad flags (degenerate | duplicate triple | on an
-    over-shared edge) for repair(); returns bool (F,), or None when
-    n_vertices >= 2^21 (the packed key's range)."""
-    if n_vertices >= (1 << 21):
-        return None
-    lib = get_lib()
-    f = np.ascontiguousarray(faces, dtype=np.int32)
-    bad = np.empty(len(f), np.uint8)
-    lib.face_hygiene_native(
-        _i32p(f), len(f), n_vertices,
-        bad.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)))
-    return bad.astype(bool)
-
-
 def vertex_components(faces, n_vertices):
     """(labels, n_components) over the face-edge graph via native
     union-find (scipy labeling convention)."""
     lib = get_lib()
-    f = np.ascontiguousarray(faces, dtype=np.int32)
+    f = _checked_faces(faces, n_vertices, 'vertex_components')
     labels = np.empty(n_vertices, np.int32)
     n = lib.vertex_components_native(_i32p(f), len(f), n_vertices,
                                      _i32p(labels))
@@ -428,9 +418,9 @@ class KnnField:
 
 
 def hilbert_codes(X, bits):
-    """Hilbert codes for pre-quantized (n, 3) uint32 coordinates;
-    bit-exact twin of the numpy Skilling loops in
-    ``ops.ordering.hilbert_order``."""
+    """Hilbert codes for pre-quantized (n, 3) uint32 coordinates
+    (Skilling's transpose; the JAX package's numpy loops, bit for
+    bit)."""
     lib = get_lib()
     Xc = np.ascontiguousarray(X, dtype=np.uint32)
     out = np.empty(len(Xc), np.uint64)
@@ -503,9 +493,8 @@ def gaussian_k(vertices, faces, nbr_v=None):
 
 
 def smooth_vertex_data(data, nbr_v, n_iter=1):
-    """One-ring average of per-vertex scalar data (incl. self) —
-    bit-exact native twin of TriangleMesh.smooth_per_vertex_data
-    (float64 accumulation in neighbor-slot order).  Returns (V,) f32."""
+    """One-ring average of per-vertex scalar data (incl. self), float64
+    accumulation in neighbor-slot order.  Returns (V,) f32."""
     lib = get_lib()
     d = np.ascontiguousarray(data, dtype=np.float32)
     nb = np.ascontiguousarray(nbr_v, dtype=np.int32)
@@ -522,8 +511,8 @@ def smooth_vertex_data(data, nbr_v, n_iter=1):
 
 def has_nonmanifold_vertices(he_src, he_vertex, he_twin, he_next, nv):
     """Fan-count nonmanifold-vertex test over packed halfedge tables
-    (twin of mesh.core._has_nonmanifold_vertices's union-find, which
-    costs ~2 s of pure-Python find() at 131k verts).  Returns bool."""
+    (a vertex whose outgoing halfedges form more than one fan).
+    Returns bool."""
     lib = get_lib()
     s = np.ascontiguousarray(he_src, dtype=np.int32)
     v = np.ascontiguousarray(he_vertex, dtype=np.int32)

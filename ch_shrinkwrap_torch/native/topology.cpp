@@ -984,8 +984,8 @@ void build_tables_native(const int32_t* faces, int nf, int nv, int K,
 // Halfedge twin matching for HalfedgeTables (mesh/core.py): twin[h] is
 // the reverse-directed halfedge iff both directed edges are singletons
 // (equivalent to the numpy searchsorted + dup-severing + back-check
-// chain; multiple matches in either direction are non-manifold and
-// sever to -1).  dup_out marks directed edges appearing >1x
+// chain of the reference, tests/torch_host_reference.py; multiple
+// matches in either direction are non-manifold and sever to -1).  dup_out marks directed edges appearing >1x
 // (nonmanifold_edges); vhe_out is the first outgoing halfedge per
 // vertex.  The numpy formulation costs ~1 s per rebuild at 163k verts
 // on this 1-core host (repair() rebuilds several times per call);
@@ -1043,70 +1043,11 @@ void halfedge_twins_native(const int32_t* faces, int nf, int nv,
 
 
 // ---------------------------------------------------------------------
-// Face hygiene for repair() (mesh/core.py): one pass computing, per
-// face, bad = degenerate | duplicate (same sorted vertex triple as an
-// earlier face) | incident on an over-shared undirected edge (>2 face
-// incidences).  Replaces two np.unique key sorts (~0.6 s/pass at 163k
-// verts) with one 64-bit sort + counting-sort bucket scans.  Caller
-// guarantees nv < 2^21 so a sorted triple packs into 63 bits.
-void face_hygiene_native(const int32_t* faces, int nf, int nv,
-                         uint8_t* bad_out) {
-    std::memset(bad_out, 0, nf);
-
-    // degenerate + duplicate faces
-    std::vector<std::pair<int64_t, int32_t>> keys(nf);
-    for (int f = 0; f < nf; ++f) {
-        int32_t a = faces[3 * f], b = faces[3 * f + 1], c = faces[3 * f + 2];
-        if (a == b || b == c || a == c) bad_out[f] = 1;
-        int32_t lo = std::min(a, std::min(b, c));
-        int32_t hi = std::max(a, std::max(b, c));
-        int32_t mid = (int32_t)((int64_t)a + b + c - lo - hi);
-        keys[f] = {((int64_t)lo << 42) | ((int64_t)mid << 21) | hi, f};
-    }
-    std::sort(keys.begin(), keys.end());
-    for (int i = 1; i < nf; ++i)
-        if (keys[i].first == keys[i - 1].first)
-            bad_out[keys[i].second] = 1;  // keep lowest face index only
-
-    // undirected edges incident on >2 faces: bucket by lo endpoint
-    const int64_t nhe = 3LL * nf;
-    std::vector<int32_t> cnt(nv + 1, 0);
-    std::vector<int32_t> e_lo(nhe), e_hi(nhe);
-    for (int f = 0; f < nf; ++f) {
-        for (int k = 0; k < 3; ++k) {
-            int32_t a = faces[3 * f + k];
-            int32_t b = faces[3 * f + (k + 1) % 3];
-            int64_t h = 3LL * f + k;
-            e_lo[h] = std::min(a, b);
-            e_hi[h] = std::max(a, b);
-            ++cnt[e_lo[h] + 1];
-        }
-    }
-    for (int v = 0; v < nv; ++v) cnt[v + 1] += cnt[v];
-    std::vector<int32_t> b_hi(nhe), b_h(nhe);
-    std::vector<int32_t> cursor(cnt.begin(), cnt.end() - 1);
-    for (int64_t h = 0; h < nhe; ++h) {
-        int pos = cursor[e_lo[h]]++;
-        b_hi[pos] = e_hi[h];
-        b_h[pos] = (int32_t)h;
-    }
-    for (int v = 0; v < nv; ++v) {
-        for (int p = cnt[v]; p < cnt[v + 1]; ++p) {
-            int n_inc = 0;
-            for (int q = cnt[v]; q < cnt[v + 1]; ++q)
-                if (b_hi[q] == b_hi[p]) ++n_inc;
-            if (n_inc > 2) bad_out[b_h[p] / 3] = 1;
-        }
-    }
-}
-
-
-// ---------------------------------------------------------------------
 // Vertex connected components over the face-edge graph (union-find
 // with path halving).  Labels are assigned in order of first
 // appearance scanning vertices 0..nv-1 — the same convention as
-// scipy.sparse.csgraph.connected_components, which this replaces on
-// the repair/remove_inner_surfaces path.  Returns the component count.
+// scipy.sparse.csgraph.connected_components, which the reference
+// (tests/torch_host_reference.py) runs.  Returns the component count.
 int32_t vertex_components_native(const int32_t* faces, int nf, int nv,
                                  int32_t* labels_out) {
     std::vector<int32_t> parent(nv);
@@ -1744,9 +1685,9 @@ void knn_field_native(const float* pts, int64_t n_pts,
 }
 
 // Hilbert codes from pre-quantized (n,3) uint32 coordinates (Skilling,
-// "Programming the Hilbert curve", 2004).  Bit-exact twin of the numpy
-// loops in ops.correspondence.hilbert_order — the quantization stays in
-// numpy (vector ops are cheap there); the 9x3-pass transpose transform
+// "Programming the Hilbert curve", 2004).  Bit-exact twin of the JAX
+// package's numpy loops (ops/correspondence.py hilbert_codes_for) —
+// the quantization stays in numpy (vector ops are cheap there); the 9x3-pass transpose transform
 // and the 3*bits-pass bit interleave are the wall-clock and go here.
 static inline uint64_t hilbert_one(uint32_t x0, uint32_t x1, uint32_t x2,
                                    int bits) {
@@ -2021,10 +1962,10 @@ void strided_col_native(const int32_t* tbl, int64_t n, int32_t stride,
     for (int64_t i = 0; i < n; ++i) out[i] = tbl[i * stride + col];
 }
 
-// One-ring average of per-vertex scalar data (incl. self), bit-exact
-// twin of mesh.core.TriangleMesh.smooth_per_vertex_data (float64
-// accumulation in neighbor-slot order, cast to f32): the boundary
-// neck-K smoothing pass cost ~40 ms/boundary in numpy at 131k verts.
+// One-ring average of per-vertex scalar data (incl. self), for
+// mesh.core.TriangleMesh.smooth_per_vertex_data: float64 accumulation
+// in neighbor-slot order, cast to f32, bit for bit the JAX package's
+// numpy form, which cost ~40 ms/boundary at 131k verts.
 void smooth_vertex_data_native(const float* data, const int32_t* nbr_v,
                                int64_t nv, int32_t K, int32_t n_iter,
                                float* out) {
@@ -2048,9 +1989,9 @@ void smooth_vertex_data_native(const float* data, const int32_t* nbr_v,
 
 // Non-manifold-vertex detection: a vertex is manifold iff its incident
 // faces form a single fan.  Count fans by walking h -> next(twin(h))
-// orbits over outgoing halfedges (the union-find construction in
-// mesh.core._has_nonmanifold_vertices, which cost ~2 s of pure-Python
-// find() at 131k verts per is_manifold call in the eval harness).
+// orbits over outgoing halfedges (the JAX package's union-find in
+// _has_nonmanifold_vertices, which cost ~2 s of pure-Python find() at
+// 131k verts per is_manifold call in the eval harness).
 // he arrays are the packed halfedge tables; n = halfedge count.
 // Returns 1 if any vertex has more than one fan, else 0.
 int32_t has_nonmanifold_vertices_native(const int32_t* he_src,
@@ -2114,7 +2055,8 @@ int32_t has_nonmanifold_vertices_native(const int32_t* he_src,
 
 // ---------------------------------------------------------------------
 // Vertex removal and hole repair: mesh.core.TriangleMesh.repair, bit
-// for bit the arrays of its numpy passes (TriangleMesh._repair_numpy).
+// for bit the arrays of the numpy reference passes
+// (tests/torch_host_reference.py).
 //
 // The numpy passes rebuild the whole mesh several times a pass.  Here
 // faces keep their ids (killed faces drop out, fill triangles append,

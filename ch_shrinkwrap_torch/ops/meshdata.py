@@ -79,49 +79,6 @@ class MeshArrays(NamedTuple):
         return self.faces.shape[0]
 
 
-def neighbor_tables(faces: np.ndarray, n_vertices: int,
-                    K: int = NEIGHBORSIZE):
-    """(V, K) neighbour-vertex and neighbour-face tables from (F, 3)
-    faces: slot k of vertex v holds the head of one outgoing halfedge
-    v->u and the face on that halfedge's left.  The numpy reference of
-    ``native.build_tables`` (which ``from_mesh`` runs), held to it in
-    the tests."""
-    src = faces.ravel()
-    dst = faces[:, [1, 2, 0]].ravel()
-    fidx = np.repeat(np.arange(faces.shape[0], dtype=np.int64), 3)
-    order = np.argsort(src, kind='stable')
-    ssrc = src[order]
-    starts = np.searchsorted(ssrc, np.arange(n_vertices))
-    rank = np.arange(len(ssrc)) - starts[ssrc]
-    nbr_v = np.full((n_vertices, K), -1, np.int32)
-    nbr_f = np.full((n_vertices, K), -1, np.int32)
-    ok = rank < K
-    nbr_v[ssrc[ok], rank[ok]] = dst[order[ok]]
-    nbr_f[ssrc[ok], rank[ok]] = fidx[order[ok]]
-    return nbr_v, nbr_f
-
-
-def face_adjacency(faces: np.ndarray) -> np.ndarray:
-    """(F, 3) edge-adjacent face ids (-1 on boundary/non-manifold); the
-    numpy reference of ``native.build_tables``' face table."""
-    F = faces.shape[0]
-    if F == 0:
-        return np.zeros((0, 3), np.int32)
-    src = faces.ravel().astype(np.int64)
-    dst = faces[:, [1, 2, 0]].ravel().astype(np.int64)
-    V = int(faces.max()) + 1
-    key = src * V + dst
-    tkey = dst * V + src
-    order = np.argsort(key, kind='stable')
-    skey = key[order]
-    pos = np.searchsorted(skey, tkey)
-    pos_c = np.clip(pos, 0, len(skey) - 1)
-    cand = order[pos_c]
-    ok = (pos < len(skey)) & (skey[pos_c] == tkey)
-    twin_face = np.where(ok, cand // 3, -1)
-    return twin_face.reshape(F, 3).astype(np.int32)
-
-
 def from_mesh(mesh, v_cap: Optional[int] = None,
               f_cap: Optional[int] = None, quantum: int = 1024,
               K: int = NEIGHBORSIZE, hilbert_faces: bool = True,

@@ -1,8 +1,9 @@
 """Host-side spatial orderings shared by the mesh and the fit loop.
 
-Numpy-only: the Hilbert and Morton sort keys that make vertex, face and
-point indices spatially local, the once-per-fit point permutation, and
-the stratified face subsample of the windowed correspondence search.
+The Hilbert and Morton sort keys that make vertex, face and point
+indices spatially local (the Hilbert codes from the native host
+engine), the once-per-fit point permutation, and the stratified face
+subsample of the windowed correspondence search.
 Counterpart of the same functions in the JAX package's
 ``ops/correspondence.py:106-391``.
 """
@@ -10,6 +11,9 @@ Counterpart of the same functions in the JAX package's
 from __future__ import annotations
 
 import numpy as np
+
+from .. import native
+
 
 def _subsample_ids(n_total, n_sub):
     """Quasi-uniform face subsample: stratified + hash-jittered.
@@ -88,46 +92,8 @@ def hilbert_codes_for(points, bits=10, lo=None, hi=None):
         hi = p.max(0)
     p = np.clip(p, lo, hi)
     X = ((p - lo) / np.maximum(hi - lo, 1e-12) * ((1 << bits) - 1)
-         ).astype(np.uint32).copy()
-
-    if len(X) >= 4096:
-        from .. import native
-        return native.hilbert_codes(X, bits)
-
-    M = np.uint32(1 << (bits - 1))
-    # inverse undo (Skilling, "Programming the Hilbert curve", 2004)
-    Q = M
-    while Q > 1:
-        P = np.uint32(Q - 1)
-        for i in range(3):
-            cond = (X[:, i] & Q) != 0
-            x0_inv = X[:, 0] ^ P
-            t = (X[:, 0] ^ X[:, i]) & P
-            x0_swp = X[:, 0] ^ t
-            xi_swp = X[:, i] ^ t
-            xi_new = np.where(cond, X[:, i], xi_swp)
-            X[:, 0] = np.where(cond, x0_inv, x0_swp)
-            if i != 0:
-                X[:, i] = xi_new
-        Q = np.uint32(Q >> 1)
-    # Gray encode
-    for i in range(1, 3):
-        X[:, i] ^= X[:, i - 1]
-    t = np.zeros(len(X), np.uint32)
-    Q = M
-    while Q > 1:
-        t = np.where((X[:, 2] & Q) != 0, t ^ np.uint32(Q - 1), t)
-        Q = np.uint32(Q >> 1)
-    for i in range(3):
-        X[:, i] ^= t
-
-    # transpose-interleave into a single key (axis 0 holds MSBs)
-    code = np.zeros(len(X), np.uint64)
-    for b in range(bits - 1, -1, -1):
-        for i in range(3):
-            code = (code << np.uint64(1)) | ((X[:, i] >> b) & 1).astype(
-                np.uint64)
-    return code
+         ).astype(np.uint32)
+    return native.hilbert_codes(X, bits)
 
 
 def fit_point_order(points, grid_n=128, sparse_fraction=0.1):

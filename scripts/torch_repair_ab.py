@@ -7,9 +7,9 @@ configuration and workload runs (``benchmark.fits``, the seed given),
 and every ``MembraneMesh.remove_necks`` call's ``repair`` input (the
 mesh and the vertices it removes) is kept.  Then each input runs
 through both paths in turns (numpy, native, native, numpy, ...
-``--repeats`` pairs): ``TriangleMesh._repair_numpy`` and
-``TriangleMesh.repair`` (the native call), and their
-vertices, faces and counts must be equal.  One JSON line an input: the
+``--repeats`` pairs): ``ReferenceMesh.repair`` (the numpy reference,
+``tests/torch_host_reference.py``) and ``TriangleMesh.repair`` (the
+native call), and their vertices, faces and counts must be equal.  One JSON line an input: the
 mesh sizes, the vertices removed, each path's median seconds and the
 repair's counts; one line a cell sums them, beside the fit's own
 ``remove_necks/repair`` spans.
@@ -32,11 +32,13 @@ import numpy as np
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, HERE)
+sys.path.insert(0, os.path.join(HERE, 'tests'))
 
 from benchmark.harness import Cell  # noqa: E402
 from benchmark.instrument import Spans  # noqa: E402
 from ch_shrinkwrap_torch.mesh.core import TriangleMesh  # noqa: E402
 from ch_shrinkwrap_torch.models import MembraneMesh  # noqa: E402
+from torch_host_reference import ReferenceMesh  # noqa: E402
 
 
 def neck_inputs(cell_name, seed, device, n_points=None, iterations=None):
@@ -83,10 +85,10 @@ def time_both(v, f, rem, repeats):
     for i in range(repeats):
         order = ('numpy', 'native') if i % 2 == 0 else ('native', 'numpy')
         for path in order:
-            m = TriangleMesh(v.copy(), f.copy())
+            cls = ReferenceMesh if path == 'numpy' else TriangleMesh
+            m = cls(v.copy(), f.copy())
             t0 = time.perf_counter()
-            counts = (m._repair_numpy(remove=rem) if path == 'numpy'
-                      else m.repair(remove=rem))
+            counts = m.repair(remove=rem)
             times[path].append(time.perf_counter() - t0)
             out[path] = (m.vertices, m.faces, counts)
     a, b = out['numpy'], out['native']

@@ -3,8 +3,9 @@ port's import and device rules.
 
 The host mesh code (spatial sort, neighbour tables, remesh, marching
 seed, Hilbert codes) is numpy + the native engine in both packages; the
-port keeps its own copy, so the same numpy inputs must give the same
-bits.
+port keeps its own copy and runs its engine at every mesh size, where
+the JAX package runs numpy below a size, so the same numpy inputs must
+give the same bits.
 """
 
 import inspect
@@ -33,6 +34,7 @@ from ch_shrinkwrap_torch.ops import meshdata as tmd
 from ch_shrinkwrap_torch.ops import ordering as tord
 from ch_shrinkwrap_torch import native as tnative
 
+import torch_host_reference as host_reference
 from torch_parity_native import load_both_engines
 
 load_both_engines()
@@ -90,11 +92,145 @@ def test_numpy_neighbor_tables_match_native():
     v, f = noisy_sphere(3, seed=2)
     ta = tmd.from_mesh(TMesh(v, f), quantum=256, hilbert_faces=False,
                        device='cpu')
-    nv, nf = tmd.neighbor_tables(f, v.shape[0])
+    nv, nf = host_reference.neighbor_tables(f, v.shape[0])
     np.testing.assert_array_equal(ta.nbr_v.numpy()[:v.shape[0]], nv)
     np.testing.assert_array_equal(ta.nbr_f.numpy()[:v.shape[0]], nf)
     np.testing.assert_array_equal(ta.face_nbrs.numpy()[:f.shape[0]],
-                                  tmd.face_adjacency(f))
+                                  host_reference.face_adjacency(f))
+
+
+def _cut_sphere(sub):
+    """A noisy sphere with a cap cut away: a boundary loop."""
+    v, f = noisy_sphere(sub, seed=10 + sub)
+    return v, f[v[f].mean(1)[:, 2] < 0.6 * v[:, 2].max()]
+
+
+def _duplicated_edges():
+    """A repeated face, a flipped copy of another and a degenerate face:
+    directed edges that appear twice, and an edge on three faces."""
+    v, f = noisy_sphere(2, seed=11)
+    return v, np.vstack([f, f[3:4], f[7:8, ::-1],
+                         [[f[9, 0], f[9, 0], f[9, 1]]]])
+
+
+def _pinch():
+    """Two spheres of 80 faces that share one vertex (two fans)."""
+    v, f = noisy_sphere(1, seed=12)
+    far = int(np.argmin(v @ v[0]))
+    w = v + (v[0] - v[far])
+    # the second sphere's vertex ``far`` is the first sphere's vertex 0
+    ids = np.arange(len(v)) + len(v)
+    ids[far] = 0
+    return np.vstack([v, w]).astype(np.float32), np.vstack([f, ids[f]])
+
+
+def _components():
+    """Spheres of 80, 320 and 1280 faces, a tetrahedron and isolated
+    vertices, with the vertices shuffled, so that the label order
+    (scipy's: by each component's lowest vertex) is not the input's."""
+    parts, faces, n = [], [], 0
+    for sub, shift in ((1, 0.0), (2, 150.0), (3, -150.0)):
+        v, f = noisy_sphere(sub, seed=13 + sub)
+        parts.append(v + np.float32(shift))
+        faces.append(f + n)
+        n += len(v)
+    parts.append(np.eye(4, 3, dtype=np.float32) * 5 + 300)
+    faces.append(np.array([[0, 2, 1], [0, 1, 3], [1, 2, 3], [0, 3, 2]]) + n)
+    n += 4
+    parts.append(np.full((6, 3), -300.0, np.float32))
+    perm = np.random.default_rng(13).permutation(n + 6)
+    inv = np.argsort(perm)
+    v = np.vstack(parts)[perm]
+    return v, inv[np.vstack(faces)]
+
+
+def _soups():
+    """Random face soups over a few vertices: degenerate and repeated
+    faces, over-shared edges, pinches and unused vertices at once."""
+    rng = np.random.default_rng(14)
+    v = rng.normal(size=(9, 3)).astype(np.float32)
+    return v, rng.integers(0, 9, size=(12, 3))
+
+
+HOST_MESHES = {
+    'no_vertices': lambda: (np.zeros((0, 3), np.float32),
+                            np.zeros((0, 3), np.int32)),
+    'no_faces': lambda: (np.ones((5, 3), np.float32),
+                         np.zeros((0, 3), np.int32)),
+    'unused_vertices': lambda: (
+        np.vstack([noisy_sphere(1, seed=15)[0],
+                   np.zeros((3, 3), np.float32)]),
+        noisy_sphere(1, seed=15)[1]),
+    'boundary': lambda: _cut_sphere(2),
+    'duplicated_edges': _duplicated_edges,
+    'pinch': _pinch,
+    'components': _components,
+    'soups': _soups,
+    # the old size tests: 4096 halfedges (the fan test), 4096 faces
+    # (components), 8192 halfedges (twins), 4096 vertices (smoothing)
+    'sphere_1280': lambda: noisy_sphere(3, seed=16),
+    'sphere_5120': lambda: noisy_sphere(4, seed=17),
+    'cut_sphere_5120': lambda: _cut_sphere(4),
+    'sphere_20480': lambda: noisy_sphere(5, seed=18),
+}
+
+
+@pytest.mark.parametrize('case', list(HOST_MESHES))
+def test_host_primitives_bit_identical(case):
+    """The port's twins, components, fan test and one-ring smoothing (the
+    native engine at every size) against the JAX package's (numpy below
+    its size tests, its own engine above them), bit for bit."""
+    v, f = HOST_MESHES[case]()
+    f = np.ascontiguousarray(f, dtype=np.int32)
+    cases = [(v, f)]
+    if case == 'soups':
+        rng = np.random.default_rng(19)
+        cases += [(v, rng.integers(0, len(v), size=(int(n), 3)).astype(
+            np.int32)) for n in rng.integers(1, 12, size=200)]
+    for v, f in cases:
+        a, b = JMesh(v, f), TMesh(v, f)
+        for name in ('twin', 'nonmanifold_edges', 'vertex_halfedge'):
+            x, y = getattr(a.halfedges, name), getattr(b.halfedges, name)
+            assert x.dtype == y.dtype, name
+            np.testing.assert_array_equal(x, y, err_msg=name)
+        (jl, jn), (tl, tn) = a.connected_components(), b.connected_components()
+        assert jl.dtype == tl.dtype and jn == tn
+        np.testing.assert_array_equal(jl, tl)
+        assert a._has_nonmanifold_vertices() == b._has_nonmanifold_vertices()
+        assert a.is_manifold == b.is_manifold
+        # float32 data over eighty binades, so that the float64 sums round
+        rng = np.random.default_rng(20)
+        data = (rng.normal(size=len(v)) * 2.0 ** rng.integers(
+            -60, 20, size=len(v))).astype(np.float32)
+        for n_iter in (1, 2):
+            x = a.smooth_per_vertex_data(data, n_iter=n_iter)
+            y = b.smooth_per_vertex_data(data, n_iter=n_iter)
+            assert x.dtype == y.dtype == np.float32
+            np.testing.assert_array_equal(x.view(np.int32),
+                                          y.view(np.int32))
+    if case == 'pinch':
+        assert b._has_nonmanifold_vertices() and not b.is_manifold
+    if case == 'components':
+        assert b.connected_components()[1] == 3 + 1 + 6
+    if case in ('boundary', 'cut_sphere_5120'):
+        assert b.n_boundary_loops == 1
+
+
+@pytest.mark.parametrize('bad', ['negative', 'past_the_end'])
+def test_host_engine_refuses_faces_out_of_range(bad):
+    """The engine indexes by the faces without checks of its own, at
+    every size now: the twins and the components refuse faces that do
+    not index the vertices, as the numpy forms did by raising."""
+    v, f = noisy_sphere(1, seed=21)
+    f = f.copy()
+    if bad == 'negative':
+        f[3, 2] = -1
+    else:
+        f[5, 0] = len(v)
+    with pytest.raises(ValueError, match='must index'):
+        TMesh(v, f).halfedges
+    with pytest.raises(ValueError, match='must index'):
+        TMesh(v, f).connected_components()
 
 
 @pytest.mark.parametrize('target_scale,n_relax', [(0.6, 0), (1.3, 2)])
@@ -183,8 +319,8 @@ def test_wrap_start_bit_identical():
 
 @pytest.mark.parametrize('n', [1000, 8192])
 def test_hilbert_codes_and_orders_bit_identical(n):
-    """Below 4096 points the numpy Skilling loops run, above it the
-    native codes; both must match the JAX package's."""
+    """The port's native codes at every size against the JAX package's
+    (its numpy Skilling loops below 4096 points, its engine above)."""
     rng = np.random.default_rng(n)
     pts = np.vstack([sphere_points(n, seed=n),
                      rng.uniform(-150, 150, (n // 20, 3))]).astype(

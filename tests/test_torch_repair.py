@@ -3,9 +3,10 @@ call against the numpy passes it replaces, bit for bit.
 
 ``TriangleMesh.repair`` hands the removal and every pass to the host
 engine (``native.repair``); the numpy passes
-(``TriangleMesh._repair_numpy``) are the reference here.  On meshes
-from 80 to 20480 faces the vertices, the faces, a carried per-vertex
-array and the counts must come out equal.
+(``torch_host_reference.ReferenceMesh.repair``, numpy and scipy only)
+are the reference here.  On meshes from 80 to 20480 faces the vertices,
+the faces, a carried per-vertex array and the counts must come out
+equal.
 """
 
 import numpy as np
@@ -14,6 +15,8 @@ import pytest
 from ch_shrinkwrap_torch import native
 from ch_shrinkwrap_torch.mesh.core import TriangleMesh
 from ch_shrinkwrap_torch.mesh.primitives import icosphere
+
+from torch_host_reference import ReferenceMesh
 
 
 def sphere(sub=4, radius=50.0):
@@ -133,17 +136,32 @@ CASES = {'scattered': scattered, 'pinch': pinch, 'tangled': tangled,
          'closed': closed, 'raw': raw, 'small_scattered': small_scattered,
          'small_pinch': small_pinch, 'tiny': tiny,
          # the split and the debris check with no pass, or one, before
-         'no_passes': freed_by_split, 'one_pass': tangled}
+         'no_passes': freed_by_split, 'one_pass': tangled,
+         # the reference with the native engine unloadable
+         'no_engine': scattered}
 MAX_PASSES = {'no_passes': 0, 'one_pass': 1}
 
 
-def both_repairs(v, f, rem, max_passes=8):
+def _no_engine():
+    raise RuntimeError('the native engine is unloadable in this case')
+
+
+def both_repairs(v, f, rem, max_passes=8, engine_off=False):
+    """The native repair, then the reference; with ``engine_off`` the
+    reference runs with ``native.get_lib`` raising, under which the
+    native repair raises."""
     out = []
-    for name in ('repair', '_repair_numpy'):
-        m = TriangleMesh(v.copy(), f.copy())
+    for cls in (TriangleMesh, ReferenceMesh):
+        m = cls(v.copy(), f.copy())
         m.extra_vertex_data = {'id': np.arange(len(v)),
                                'xy': v[:, :2].copy()}
-        counts = getattr(m, name)(max_passes, remove=rem)
+        with pytest.MonkeyPatch.context() as mp:
+            if engine_off and cls is ReferenceMesh:
+                mp.setattr(native, 'get_lib', _no_engine)
+                with pytest.raises(RuntimeError, match='unloadable'):
+                    TriangleMesh(v.copy(), f.copy()).repair(
+                        max_passes, remove=rem)
+            counts = m.repair(max_passes, remove=rem)
         out.append((m, counts))
     return out
 
@@ -151,8 +169,8 @@ def both_repairs(v, f, rem, max_passes=8):
 @pytest.mark.parametrize('case', sorted(CASES))
 def test_native_repair_equals_numpy_passes(case):
     v, f, rem = CASES[case]()
-    (nm, nc), (pm, pc) = both_repairs(v, f, rem,
-                                      MAX_PASSES.get(case, 8))
+    (nm, nc), (pm, pc) = both_repairs(v, f, rem, MAX_PASSES.get(case, 8),
+                                      engine_off=case == 'no_engine')
     np.testing.assert_array_equal(nm.vertices, pm.vertices)
     np.testing.assert_array_equal(nm.faces, pm.faces)
     assert nm.faces.dtype == pm.faces.dtype == np.int32
@@ -169,7 +187,7 @@ def test_native_repair_equals_numpy_passes(case):
         assert set(nc.values()) == {0}
         np.testing.assert_array_equal(nm.faces, f)
     if case in ('scattered', 'neck', 'pinch', 'small_scattered',
-                'small_pinch'):
+                'small_pinch', 'no_engine'):
         assert nc['holes'] > 0 and nc['faces_added'] > 0
     if case in ('pinch', 'freed_by_split', 'small_pinch', 'no_passes'):
         assert nc['split_vertices'] > 0
@@ -184,7 +202,7 @@ def test_native_repair_equals_numpy_passes(case):
     if case == 'neck':
         assert nm.connected_components()[1] == 2
     if case in ('scattered', 'neck', 'debris', 'freed_by_split',
-                'small_scattered'):
+                'small_scattered', 'no_engine'):
         assert nm.is_manifold
 
 
