@@ -177,18 +177,36 @@ def surface_from_function(f, bbox, step):
     f : callable taking (N, 3) -> (N,) signed values.
     bbox : (x0, y0, z0, x1, y1, z1).
     """
+    shape, pts = grid_nodes(bbox, step)
+    vals = np.asarray(f(pts)).reshape(shape)
+    return marching_tetrahedra(vals, bbox[:3], step)
+
+
+def grid_nodes(bbox, step):
+    """(shape, (n, 3) float64 nodes in C order) of the grid over bbox
+    at pitch ``step``: the points ``surface_from_function`` samples."""
     x0, y0, z0, x1, y1, z1 = bbox
     xs = np.arange(x0, x1 + step, step)
     ys = np.arange(y0, y1 + step, step)
     zs = np.arange(z0, z1 + step, step)
     X, Y, Z = np.meshgrid(xs, ys, zs, indexing='ij')
-    pts = np.stack([X.ravel(), Y.ravel(), Z.ravel()], axis=1)
-    vals = np.asarray(f(pts)).reshape(X.shape)
-    return marching_tetrahedra(vals, (x0, y0, z0), step)
+    return X.shape, np.stack([X.ravel(), Y.ravel(), Z.ravel()], axis=1)
+
+
+def seed_grid(points, offset, grid_n):
+    """(bbox, step, bound) of ``wrap_start``'s marching grid and field
+    bound over ``points``."""
+    lo = points.min(0) - 2 * offset
+    hi = points.max(0) + 2 * offset
+    step = float((hi - lo).max()) / grid_n
+    # crossing-edge endpoints satisfy d_k < offset + sqrt(3)*step
+    # (1-Lipschitz field, body-diagonal tet edges); 1.8 adds margin
+    bound = offset + 1.8 * step
+    return (lo[0], lo[1], lo[2], hi[0], hi[1], hi[2]), step, bound
 
 
 def wrap_start(points, offset=10.0, neighbourhood=50, grid_n=48,
-               max_tree_points=None):
+               max_tree_points=None, device=None):
     """kNN-density initial wrap surface (holepunch.py:88-112 rebuild):
     the level set of (distance to the ``neighbourhood``-th nearest
     localization) - offset, meshed and remeshed.
@@ -201,10 +219,23 @@ def wrap_start(points, offset=10.0, neighbourhood=50, grid_n=48,
     output vertex, and the bound prunes the hollow interior, the
     kd-tree's worst case (31.9 -> 10.4 s at 1e6 points round 2).
 
-    The field itself runs on the native grid-bucketed engine
+    The field runs on the card (``ops.cuda_field.knn_field``, the
+    kernel of ``csrc/knn_field.cu``) when ``device`` is a CUDA device,
+    by default where ``torch.cuda.is_available()``; with ``device='cpu'``
+    (or no card) on the native grid-bucketed host engine
     (``native.knn_field``: counting-sorted cells + chessboard distance
     transform for O(1) interior rejection + expanding-ring exact
-    search), 25x faster than a scipy kd-tree on this workload.
+    search), 25x faster than a scipy kd-tree on this workload.  Both
+    return the same bits, so the seed is the same mesh on either route,
+    where g++ builds the host engine with ``-march=native`` for a CPU
+    with FMA (it then contracts each squared distance into the kernel's
+    ``fma(dz, dz, fma(dx, dx, dy*dy))``); on the engine's plain ``-O3``
+    fallback build the two routes may differ in the last bit.
+    The ``field`` span's extras say which ran (``route``: ``card`` or
+    ``host``), and count the ``queries``, the ``misses`` (queries with
+    fewer than ``neighbourhood`` points within the bound) and, on the
+    card route, the ``live`` ones that reach the kernel's search (None
+    on the host route, whose engine does not report it).
 
     ``max_tree_points`` optionally subsamples the cloud with
     ``neighbourhood`` thinned proportionally (k-th NN radius of a
@@ -216,10 +247,14 @@ def wrap_start(points, offset=10.0, neighbourhood=50, grid_n=48,
 
     The returned mesh carries the ``FitTrace`` of its ``seed`` span
     (``mesh.trace``), which a ``MembraneMesh`` built from it continues."""
+    import torch
     from .core import TriangleMesh
     from .remesh import remesh
     from .. import native
 
+    if device is None:
+        device = 'cuda' if torch.cuda.is_available() else 'cpu'
+    device = torch.device(device)
     trace = FitTrace()
     with trace.span('seed'):
         points = np.asarray(points)
@@ -234,22 +269,32 @@ def wrap_start(points, offset=10.0, neighbourhood=50, grid_n=48,
             k_eff = neighbourhood
             field_pts = points
 
-        lo = points.min(0) - 2 * offset
-        hi = points.max(0) + 2 * offset
-        step = float((hi - lo).max()) / grid_n
-
-        # crossing-edge endpoints satisfy d_k < offset + sqrt(3)*step
-        # (1-Lipschitz field, body-diagonal tet edges); 1.8 adds margin
-        bound = offset + 1.8 * step
+        bbox, step, bound = seed_grid(points, offset, grid_n)
 
         def f(p):
-            with trace.span('field'):
-                d = native.knn_field(field_pts, p, k_eff, bound)
+            with trace.span('field') as rec:
+                pts32 = torch.from_numpy(
+                    np.ascontiguousarray(field_pts, np.float32))
+                q32 = torch.from_numpy(np.ascontiguousarray(p, np.float32))
+                if device.type == 'cuda':
+                    from ..ops import cuda_field
+                    live = torch.empty(len(q32), dtype=torch.bool,
+                                       device=device)
+                    d = cuda_field.knn_field(
+                        pts32.to(device), q32.to(device), k_eff, bound,
+                        live=live).cpu().numpy()
+                    rec.extra.update(route='card', live=int(live.sum()))
+                else:
+                    d = native.knn_field(pts32.numpy(), q32.numpy(), k_eff,
+                                         bound)
+                    rec.extra.update(route='host', live=None)
+                rec.extra.update(
+                    queries=len(d),
+                    misses=int((d == 2 * np.float32(bound)).sum()))
             return np.where(d <= bound, d, bound) - offset
 
         with trace.span('march'):
-            v, fc = surface_from_function(f, (lo[0], lo[1], lo[2],
-                                              hi[0], hi[1], hi[2]), step)
+            v, fc = surface_from_function(f, bbox, step)
         with trace.span('clean'):
             mesh = TriangleMesh(v, fc)
             mesh.repair()

@@ -1,11 +1,11 @@
 """Build and load the port's CUDA kernels.
 
-The three kernel sources in ``csrc/`` (``window.cu``, ``scatter.cu``,
-``gather.cu``) have plain ``extern "C"`` launch functions and include
-no PyTorch header, so ``nvcc`` compiles each in seconds.  On first use
-:func:`lib` compiles the sources in parallel (one ``nvcc`` process per
-source), links them into one ``libcsw_kernels.so`` for ``sm_90a`` and
-loads it with ``ctypes``.
+The kernel sources in ``csrc/`` (``window.cu``, ``scatter.cu``,
+``gather.cu``, ``knn_field.cu``) have plain ``extern "C"`` launch
+functions and include no PyTorch header, so ``nvcc`` compiles each in
+seconds.  On first use :func:`lib` compiles the sources in parallel (one
+``nvcc`` process per source), links them into one ``libcsw_kernels.so``
+for ``sm_90a`` and loads it with ``ctypes``.
 
 The library lives in ``ch_shrinkwrap_torch/_build/<sha256>/``, keyed by
 the sources and the flags.  A build works in a private temporary
@@ -27,7 +27,7 @@ import threading
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, 'csrc')
-SOURCES = ('window.cu', 'scatter.cu', 'gather.cu')
+SOURCES = ('window.cu', 'scatter.cu', 'gather.cu', 'knn_field.cu')
 BUILD_ROOT = os.path.join(_PKG, '_build')
 LIB_NAME = 'libcsw_kernels.so'
 ARCH = ['-gencode', 'arch=compute_90a,code=sm_90a']
@@ -163,6 +163,26 @@ def _declare(L):
         vp, i32, i32, vp, vp, i32, i32, vp,  # src, V, C, idx, care, K, R, out
         vp]                                  # stream
     L.csw_row_group_sum.restype = i32
+    f32 = ctypes.c_float
+    L.csw_knn_bin.argtypes = [
+        vp, i32,                            # pts, N
+        f32, f32, f32, f32, i32, i32, i32,  # lo, cell edge, dims
+        vp,                                 # cell
+        vp]                                 # stream
+    L.csw_knn_bin.restype = i32
+    L.csw_knn_gather.argtypes = [
+        vp, vp, i32,                        # pts, perm, N
+        vp,                                 # sorted points
+        vp]                                 # stream
+    L.csw_knn_gather.restype = i32
+    L.csw_knn_field.argtypes = [
+        vp, vp,                             # sorted points, offsets
+        f32, f32, f32, f32, i32, i32, i32,  # lo, cell edge, dims
+        i32, f32,                           # nblock, margin
+        vp, i32, i32, f32,                  # queries, Q, k, bound
+        vp, vp,                             # out, live
+        vp]                                 # stream
+    L.csw_knn_field.restype = i32
     L.csw_error_string.argtypes = [i32]
     L.csw_error_string.restype = ctypes.c_char_p
 

@@ -5,10 +5,11 @@
 Builds the port's CUDA kernels (K1 window search, K2 windowed scatter
 and the ordered segment sum every other accumulation of the fit runs
 through, K3 row gather and K3f, the fold's fused gather + masked group
-sum) with nvcc and the native host engine (native/topology.cpp, the
-remesh and surgery of every fit) with g++, failing when either cannot be
-built or loaded; holds each kernel against its plain PyTorch version at
-the shapes of the fit's path (bit for bit: every kernel sums in its plain
+sum, and the seed's bounded k-th-NN density field) with nvcc and the
+native host engine (native/topology.cpp, the remesh and surgery of every
+fit) with g++, failing when either cannot be built or loaded; holds
+each kernel against its plain PyTorch version at the shapes of the
+fit's path (bit for bit: every kernel sums in its plain
 version's order), K2's and K2s's radix ordering against its plain
 version (segment_order: perm and offsets equal), and reads each
 kernel's device time (torch.profiler kernel events) beside its bound,
@@ -16,7 +17,10 @@ its plain version's and a library call's, on the path's own inputs;
 for K2 and K2s also the time of each stage (histogram, scan, scatter,
 offsets, reduce) with the case's longest segment, the reduce against
 the longest segment up to every row on one face, and K2s with every
-row on one vertex.  It then times the bench
+row on one vertex.  The seed's field is held to the host engine
+(native.knn_field) and to its plain version, bit for bit, on the 1e6
+cloud at wrap_start(offset=25, grid_n=48)'s 117,649 queries, and timed
+beside both.  It then times the bench
 configuration's CG block, and drives the 20-iteration no-surgery
 MembraneMesh.shrink_wrap fit of a 1e6-localization sphere cloud (R = 500
 nm, sigma = 5 nm) from its marching-cubes seed twice, counting the
@@ -900,6 +904,55 @@ def phase_kernels(device='cuda', n_points=N_POINTS, mesh_fn=_kernel_mesh,
                     fold_ms=timer(lambda: _fold(fused, inp.ma.faces, Vp,
                                                 t))['ms']))
     progress('K3f')
+
+    # ---- the seed's density field ------------------------------------
+    # the kernel against the host engine and against its plain version
+    # on the card, bit for bit, with the same live queries; ms is all
+    # the device work of a call (binning, ordering, search), search_ms
+    # the search kernel alone; host_ms the engine's wall on this host
+    from ch_shrinkwrap_torch import native
+    from ch_shrinkwrap_torch.mesh.marching import grid_nodes, seed_grid
+    from ch_shrinkwrap_torch.ops import cuda_field
+    cloud, _ = sphere_cloud(n_points)
+    bbox, step, bound = seed_grid(cloud, 25.0, 48)
+    q_np = grid_nodes(bbox, step)[1].astype(np.float32)
+    cloud_d = torch.from_numpy(cloud).to(dev)
+    q_d = torch.from_numpy(q_np).to(dev)
+    live = torch.empty(len(q_np), dtype=torch.bool, device=dev)
+    field = cuda_field.knn_field(cloud_d, q_d, 50, bound, live=live)
+    t0 = time.perf_counter()
+    ref = native.knn_field(cloud, q_np, 50, bound)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    n_host = bits_differ(field, torch.from_numpy(ref))
+    check(n_host == 0, f'field: {n_host} values differ from the host '
+          f'engine in bits')
+    live_p = torch.empty_like(live)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plain = cuda_field.knn_field_plain(cloud_d, q_d, 50, bound, live=live_p)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    n_plain = bits_differ(field, plain)
+    check(n_plain == 0 and torch.equal(live, live_p),
+          f'field: {n_plain} values differ from the plain version in bits, '
+          f'live equal: {torch.equal(live, live_p)}')
+    tf = timer(lambda: cuda_field.knn_field(cloud_d, q_d, 50, bound))
+    ts = timer(lambda: cuda_field.knn_field(cloud_d, q_d, 50, bound),
+               match='knn_field_kernel')
+    bms, bby = bound_ms(nbytes(cloud_d, q_d, field), 0.0)
+    recs['field'] = dict(
+        name='knn_field', route='cuda',
+        source='ch_shrinkwrap_torch/csrc/knn_field.cu',
+        replaces='no Pallas kernel: the host engine native.knn_field '
+                 '(native/topology.cpp)',
+        max_abs_err=0.0, ms=tf['ms'], call_ms=tf['call_ms'],
+        plain_ms=plain_ms, bound_ms=bms, bound_by=bby, library_ms=None,
+        checks=dict(host_ms=host_ms, search_ms=ts['ms'],
+                    bits_differ_host=n_host, bits_differ_plain=n_plain,
+                    N=n_points, queries=len(q_np), k=50, bound=bound,
+                    live=int(live.sum()),
+                    misses=int((field == 2 * np.float32(bound)).sum())))
+    progress('field')
     return recs
 
 
@@ -983,15 +1036,16 @@ WINDOWED_PATH = ('K1', 'K2', 'K3', 'K3f')
 
 
 def kernel_wrappers():
-    """The five kernel wrappers, whose ``launches`` count kernel
+    """The six kernel wrappers, whose ``launches`` count kernel
     launches."""
     from ch_shrinkwrap_torch.ops import cuda_window, cuda_scatter
-    from ch_shrinkwrap_torch.ops import cuda_gather
+    from ch_shrinkwrap_torch.ops import cuda_field, cuda_gather
     return {'K1': cuda_window.window_min,
             'K2': cuda_scatter.windowed_scatter,
             'segsum': cuda_scatter.segment_sum_ordered,
             'K3': cuda_gather.row_gather,
-            'K3f': cuda_gather.row_group_sum}
+            'K3f': cuda_gather.row_group_sum,
+            'field': cuda_field.knn_field}
 
 
 @contextlib.contextmanager
@@ -999,22 +1053,23 @@ def plain_versions():
     """Route the fit's path through each kernel's plain PyTorch version
     (the reference run held against the kernels on the same card)."""
     from ch_shrinkwrap_torch.ops import cuda_window, cuda_scatter
-    from ch_shrinkwrap_torch.ops import cuda_gather
+    from ch_shrinkwrap_torch.ops import cuda_field, cuda_gather
     from ch_shrinkwrap_torch.solver import shrinkwrap
     saved = (cuda_window.window_min, cuda_scatter.windowed_scatter,
              cuda_scatter.segment_sum_ordered, shrinkwrap.row_gather,
-             shrinkwrap.row_group_sum)
+             shrinkwrap.row_group_sum, cuda_field.knn_field)
     cuda_window.window_min = cuda_window.window_min_plain
     cuda_scatter.windowed_scatter = cuda_scatter.windowed_scatter_plain
     cuda_scatter.segment_sum_ordered = cuda_scatter.segment_sum_ordered_plain
     shrinkwrap.row_gather = cuda_gather.row_gather_plain
     shrinkwrap.row_group_sum = cuda_gather.row_group_sum_plain
+    cuda_field.knn_field = cuda_field.knn_field_plain
     try:
         yield
     finally:
         (cuda_window.window_min, cuda_scatter.windowed_scatter,
          cuda_scatter.segment_sum_ordered, shrinkwrap.row_gather,
-         shrinkwrap.row_group_sum) = saved
+         shrinkwrap.row_group_sum, cuda_field.knn_field) = saved
 
 
 def phase_fit(device='cuda', n_points=N_POINTS, grid_n=48, iters=20,
@@ -1028,7 +1083,7 @@ def phase_fit(device='cuda', n_points=N_POINTS, grid_n=48, iters=20,
     from ch_shrinkwrap_torch.parallel.sharding import sharded_fit
     pts, sig = sphere_cloud(n_points, radius=radius)
     t0 = time.time()
-    surf = wrap_start(pts, offset=25.0, grid_n=grid_n)
+    surf = wrap_start(pts, offset=25.0, grid_n=grid_n, device=device)
     t_seed = time.time() - t0
     mesh = MembraneMesh(
         mesh=surf, kc=1.0, step_size=20.0, max_iter=iters,
@@ -1115,7 +1170,7 @@ def phase_fit99(device='cuda', n_points=N_POINTS, radius=RADIUS,
     from ch_shrinkwrap_torch.models import MembraneMesh
     pts, sig = sphere_cloud(n_points, radius=radius)
     t0 = time.time()
-    surf = wrap_start(pts, offset=25.0, grid_n=grid_n)
+    surf = wrap_start(pts, offset=25.0, grid_n=grid_n, device=device)
     t_seed = time.time() - t0
     mesh = MembraneMesh(
         mesh=surf, kc=1.0, step_size=20.0, max_iter=iters,
@@ -1255,7 +1310,7 @@ def phase_image(device='cuda', n_points=N_POINTS, radius=RADIUS,
     t0 = time.time()
     image = cloud_image(pts, voxel)
     t_image = time.time() - t0
-    surf = wrap_start(pts, offset=25.0, grid_n=grid_n)
+    surf = wrap_start(pts, offset=25.0, grid_n=grid_n, device=device)
     t_seed = time.time() - t0 - t_image
     mod = ImageShrinkwrapMembrane(
         input='surf', input_image='image', output='membrane',
@@ -1772,6 +1827,8 @@ def main():
         for key in WINDOWED_PATH:
             check(launches[key] > 0,
                   f'{key} was not launched during the fit')
+        check(launches['field'] == 1, f"the seed's field launched "
+              f"{launches['field']} times, not once")
         # 20 iterations from the offset-25 seed stop short of the cloud
         # (the JAX package too, PERF.md section 6): the radius bound is
         # one localization sigma; the 39-iteration fit below is held to
@@ -1928,7 +1985,7 @@ def main():
 
     print(f'total {time.time() - t_all:.1f}s', flush=True)
     table = []
-    for key in ('K1', 'K2', 'segsum', 'K3', 'K3f'):
+    for key in ('K1', 'K2', 'segsum', 'K3', 'K3f', 'field'):
         rec = dict(recs[key])
         rec.pop('checks')
         # launches: the count of the kernel's path (launches_path): the
@@ -1936,7 +1993,7 @@ def main():
         # has no work there (WINDOWED_PATH), the sweep's;
         # launches_fit20, launches_image, launches_sweep: the 20-iteration
         # fit's, the image recipe's and the sweep's
-        path = 'fit99' if key in WINDOWED_PATH else 'sweep'
+        path = 'sweep' if key == 'segsum' else 'fit99'
         rec['launches'] = (launches99 if path == 'fit99'
                            else launches_sw)[key]
         rec['launches_path'] = path

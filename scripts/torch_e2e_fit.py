@@ -130,7 +130,8 @@ def main():
     sig = np.full((N, 3), sigma, np.float32)
 
     t_all = time.time()
-    surf = wrap_start(pts, offset=25.0, grid_n=args.grid_n)
+    surf = wrap_start(pts, offset=25.0, grid_n=args.grid_n,
+                      device=args.device)
     t_seed = time.time() - t_all
     print(f"wrap_start: {t_seed:.1f}s  V={surf.vertices.shape[0]}",
           flush=True)
