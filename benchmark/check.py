@@ -38,8 +38,10 @@ The stages this skips are checked by themselves:
   left; the largest over those boundaries.  Where more than a quarter
   of the vertices pass a threshold the pass removes nothing, by its
   definition, and the boundary is passed over.
-* ``shape_gap`` (nm): RMS over the final surface's vertices of their
-  distance from the sphere the cloud was drawn on.
+* ``shape_gap`` (nm): the final surface's used vertices against the
+  true shape the configuration's cloud names (``cloud.shape``), reduced
+  as that shape's module under ``reference/shapes/`` states (for the
+  sphere, the RMS of the vertices' distance from it).
 
 With ``control`` the reference in bfloat16 takes the program's place in
 ``block_gap``, and the surgery's surface rounded to bfloat16 in
@@ -172,9 +174,11 @@ def neck_miss(before, faces, after, low, high, dev, log, i):
     return kept / n_flag if n_flag else 0.0
 
 
-def compare(state, final_mesh, config, workload, inputs, seed,
+def compare(state, final_mesh, config, workload, inputs, seed, truth,
             control=False, log=print):
     """{name: value} of :data:`NUMBERS`; ``log`` gets the details.
+    ``truth`` is the module of the configuration's true shape
+    (``harness.shape_module``).
     ``state`` holds what the spans captured of the last fit: ``blocks``
     (by block index), ``start`` (the first block's starting surface)
     and ``necks`` (the neck pass's surfaces, by the index of the block
@@ -265,7 +269,7 @@ def compare(state, final_mesh, config, workload, inputs, seed,
         log(f'block {i}: surgery 90th percentile {surf[-1]:.6g} nm, rms '
             f'{float(torch.sqrt((dist ** 2).mean())):.6g} nm, max '
             f'{float(dist.max()):.6g} nm over {post.shape[0]} vertices')
-    shape = float('inf')
+    shape_gap = float('inf')
     if final_mesh is not None:
         faces = torch.from_numpy(np.asarray(final_mesh.faces,
                                             dtype=np.int64))
@@ -275,12 +279,11 @@ def compare(state, final_mesh, config, workload, inputs, seed,
         n_def += sum(d.values())
         used = verts[torch.unique(faces.reshape(-1))] if faces.numel() \
             else verts[:0]
-        centre, radius = inputs['sphere']
         if used.shape[0]:
-            shape = mesh_checks.radial_gap(
-                used, torch.tensor(centre, dtype=torch.float64), radius)
+            shape_gap = truth.gap(used, config['cloud'])
         log(f'final surface: V={len(verts)} F={len(faces)} defects {d}, '
-            f'RMS {shape:.6g} nm from the R = {radius} nm sphere')
+            f'shape_gap {shape_gap:.6g} nm off the '
+            f'{config["cloud"]["shape"]}')
         last = [b for b in boundaries if b <= workload['iterations']]
         if l0 is not None and last and faces.numel():
             target = edge_target(config, workload, l0, sigma_min, last[-1])
@@ -296,4 +299,4 @@ def compare(state, final_mesh, config, workload, inputs, seed,
                 edge_gap=max(edges) if edges else (
                     float('inf') if boundaries else 0.0),
                 neck_miss=max(necks) if necks else 0.0,
-                shape_gap=shape, defects=float(n_def))
+                shape_gap=shape_gap, defects=float(n_def))

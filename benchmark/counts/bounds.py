@@ -12,6 +12,9 @@ later kernel change cannot make them stale:
   results and a 16-byte face row read once.
 * K2, the windowed A^T segment sum: the per-point rows read once and the
   face sums written once, at the HBM rate (24 operations a point).
+* K2s, the ordered segment sum on its own (``segment_sum_ordered``):
+  the rows, their targets (and an initial table) read once and the
+  segments written once, at the HBM rate: K2's rule.
 * K3 / K3f, the row gathers: the table, the index stream (and mask) read
   once and the gathered rows written once, at the HBM rate.
 
@@ -55,6 +58,13 @@ def k2_bound(n_points, in_bytes, num_segments, out_cols):
     written once."""
     return bound_s(in_bytes + 4 * num_segments * out_cols,
                    K2_OPS_PER_ROW * n_points)
+
+
+def k2s_bound(in_bytes, num_segments, cols):
+    """K2s's bound for one call: ``in_bytes`` of rows, targets and
+    initial table read once, ``num_segments`` x ``cols`` f32 segments
+    written once."""
+    return bound_s(in_bytes + 4 * num_segments * cols, 0.0)
 
 
 def gather_bound(in_bytes, out_bytes):

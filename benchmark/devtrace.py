@@ -8,8 +8,8 @@ From ``torch.profiler``'s raw events of one fit:
   mirrors each host annotation on the device timeline, over the work
   launched inside it, so a kernel belongs to the innermost range that
   holds its midpoint, however long after its launch it ran;
-* the device seconds of the kernel families K1, K2 and K3 (K3 and K3f
-  together): every device event of their wrapper calls;
+* the device seconds of the kernel families K1, K2, K2s and K3 (K3 and
+  K3f together): every device event of their wrapper calls;
 * the ten device operations that took most time and the ten longest
   idle gaps, each gap named by the innermost host span open at its
   midpoint.
@@ -17,8 +17,8 @@ From ``torch.profiler``'s raw events of one fit:
 
 import bisect
 
-FAMILY = {'bench.k1': 'k1', 'bench.k2': 'k2', 'bench.k3': 'k3',
-          'bench.k3f': 'k3'}
+FAMILY = {'bench.k1': 'k1', 'bench.k2': 'k2', 'bench.k2s': 'k2s',
+          'bench.k3': 'k3', 'bench.k3f': 'k3'}
 
 
 def _is_device(ev):

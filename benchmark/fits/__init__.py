@@ -3,8 +3,8 @@
 Each module has a class ``Fit(config, workload, seed, device, spans)``
 that draws the inputs from the seed in set-up and keeps in ``inputs``
 what the correctness check holds the program's state to (the cloud's
-rows, inverse errors and weights, and ``sphere``, the centre and radius
-of the true surface); calling it
-runs one whole fit (``max_iter`` cuts the schedule, for the warm-up)
-and returns the fitted mesh.
+rows, inverse errors and weights; the true surface is the shape that
+the configuration's ``cloud.shape`` names); calling it runs one whole
+fit (``max_iter`` cuts the schedule, for the warm-up) and returns the
+fitted mesh.
 """

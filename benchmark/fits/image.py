@@ -67,8 +67,7 @@ class Fit:
         self.inputs = dict(points=self.points,
                            sigma_inv=np.full(rows.shape, 1.0 / voxel),
                            weights=(w / w.mean()).astype(np.float32),
-                           counts=counts,
-                           sphere=((0.0, 0.0, 0.0), c['radius']))
+                           counts=counts)
 
     def __call__(self, max_iter=None):
         from ch_shrinkwrap_torch.mesh.marching import wrap_start

@@ -21,8 +21,7 @@ class Fit:
         # with their inverse errors and residual weights
         self.inputs = dict(points=self.points,
                            sigma_inv=1.0 / self.sigma.astype(np.float64),
-                           weights=np.ones(self.sigma.shape),
-                           sphere=((0.0, 0.0, 0.0), c['radius']))
+                           weights=np.ones(self.sigma.shape))
 
     def __call__(self, max_iter=None):
         from ch_shrinkwrap_torch.mesh.marching import wrap_start

@@ -4,10 +4,11 @@ check and the result line.
 Everything a cell needs is found by name from ``BENCHMARK.json``: the
 configuration's file (its ``file`` key), the workload's fit schedule
 (``workloads/<traffic>.json``), the cell's correctness limits
-(``limits/<cell>.json``), the kind of fit (``fits/<config fit>.py``) and
-each metric's reader (``metrics/<metric>.py``).  Adding a cell, a
-configuration or a metric adds files and manifest entries and edits
-none of these.
+(``limits/<cell>.json``), the kind of fit (``fits/<config fit>.py``),
+the true shape the final surface is held to
+(``reference/shapes/<config cloud shape>.py``) and each metric's reader
+(``metrics/<metric>.py``).  Adding a cell, a configuration, a shape or
+a metric adds files and manifest entries and edits none of these.
 """
 
 import gc
@@ -33,10 +34,13 @@ def load_json(path):
 
 
 class Cell:
-    """A cell's manifest entry with its configuration, workload, limits
-    and metrics, read from the files the manifest names."""
+    """A cell's manifest entry with its configuration, workload, limits,
+    true shape and metrics, read from the files the manifest names.
+    ``overrides`` replaces keys of the configuration (``config``), the
+    workload (``workload``) and the limits (``limits``), for runs at a
+    size a test can hold."""
 
-    def __init__(self, name, root=ROOT, manifest=None):
+    def __init__(self, name, root=ROOT, manifest=None, overrides=None):
         self.manifest = manifest or load_json(
             os.path.join(root, 'BENCHMARK.json'))
         cells = {w['name']: w for w in self.manifest['workloads']}
@@ -53,6 +57,9 @@ class Cell:
             self.dir, 'workloads', self.entry['traffic'] + '.json'))
         self.limits = load_json(os.path.join(self.dir, 'limits',
                                              name + '.json'))
+        for key, val in (overrides or {}).items():
+            getattr(self, key).update(val)
+        self.shape = shape_module(self.config['cloud']['shape'], self.dir)
         # every cell reports every end-to-end metric, and the per-layer
         # metrics that list it
         self.e2e = list(self.manifest['end_to_end'])
@@ -60,16 +67,34 @@ class Cell:
                           if name in m['workloads']]
 
 
-def metric_module(metric_name, bench_dir=HERE):
-    """The module of ``metrics/<metric_name>.py``: ``read(run)``, and
-    ``SOURCE`` and ``LAYER``."""
-    path = os.path.join(bench_dir, 'metrics', metric_name + '.py')
-    mod_name = 'benchmark.metrics.' + metric_name.replace('.', '_') \
+def _module(bench_dir, package, name):
+    """The module of ``<package>/<name>.py`` under ``bench_dir``."""
+    path = os.path.join(bench_dir, *package.split('.'), name + '.py')
+    mod_name = f'benchmark.{package}.' + name.replace('.', '_') \
         .replace('-', '_')
     spec = importlib.util.spec_from_file_location(mod_name, path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def metric_module(metric_name, bench_dir=HERE):
+    """The module of ``metrics/<metric_name>.py``: ``read(run)``, and
+    ``SOURCE`` and ``LAYER``."""
+    return _module(bench_dir, 'metrics', metric_name)
+
+
+def shape_module(shape_name, bench_dir=HERE):
+    """The module of ``reference/shapes/<shape_name>.py``:
+    ``gap(vertices, cloud)``, the final surface's distance in nm from
+    the true shape."""
+    d = os.path.join(bench_dir, 'reference', 'shapes')
+    if not os.path.isfile(os.path.join(d, shape_name + '.py')):
+        known = sorted(f[:-3] for f in os.listdir(d)
+                       if f.endswith('.py') and not f.startswith('_'))
+        raise SystemExit(f'unknown shape {shape_name!r}; '
+                         f'reference/shapes has {known}')
+    return _module(bench_dir, 'reference.shapes', shape_name)
 
 
 def forbidden_modules():
@@ -116,17 +141,14 @@ class Run:
 def run_cell(name, seed, seconds, trace, device='cuda', t_start=None,
              root=ROOT, manifest=None, overrides=None, control=False,
              log=None):
-    """Runs one cell and returns the result line's dict.  ``overrides``
-    replaces keys of the configuration (``config``) and the workload
-    (``workload``), for runs at a size a test can hold."""
+    """Runs one cell and returns the result line's dict; ``overrides``
+    as :class:`Cell` takes them."""
     import torch
     from . import check, devtrace
     from .instrument import Spans
     t_start = time.perf_counter() if t_start is None else t_start
     log = log or (lambda *a: print(*a, file=sys.stderr, flush=True))
-    cell = Cell(name, root, manifest)
-    for key, val in (overrides or {}).items():
-        getattr(cell, key).update(val)      # config, workload or limits
+    cell = Cell(name, root, manifest, overrides)
     torch.manual_seed(seed)
 
     def sync():
@@ -210,7 +232,8 @@ def run_cell(name, seed, seconds, trace, device='cuda', t_start=None,
         torch.cuda.empty_cache()
     t_c = time.perf_counter()
     numbers = check.compare(captured, final, cell.config, cell.workload,
-                            inputs, seed, control=control, log=log) \
+                            inputs, seed, cell.shape, control=control,
+                            log=log) \
         if not failed else dict.fromkeys(check.NUMBERS, float('inf'))
     log(f'check took {time.perf_counter() - t_c:.2f} s')
     correct = not failed and all(

@@ -6,9 +6,9 @@ module attributes the fit loop calls through.  Each wrapper opens a
 when no profiler runs), and some also record:
 
 * every kernel wrapper call (K1 ``window_min``, K2 ``windowed_ah`` /
-  ``windowed_ahw2``, K3 ``row_gather``, K3f ``row_group_sum``), with the
-  least time its inputs need (``counts.bounds``), while ``Spans.calls``
-  is a list;
+  ``windowed_ahw2``, K2s ``segment_sum_ordered``, K3 ``row_gather``,
+  K3f ``row_group_sum``), with the least time its inputs need
+  (``counts.bounds``), while ``Spans.calls`` is a list;
 * the CG blocks a check asks for: the block's starting state and its
   result, and the result of the block before it, by block index within
   the current fit; the first block's starting surface (the edge-length
@@ -55,7 +55,8 @@ class Spans:
 
     def install(self):
         from ch_shrinkwrap_torch.models import membrane_mesh as mm
-        from ch_shrinkwrap_torch.ops import cuda_window, meshdata
+        from ch_shrinkwrap_torch.ops import cuda_scatter, cuda_window, \
+            meshdata
         from ch_shrinkwrap_torch.solver import shrinkwrap as sw
         M = mm.MembraneMesh
         self._patch(M, 'remove_necks', self._necks)
@@ -72,6 +73,7 @@ class Spans:
         self._patch(cuda_window, 'window_min', self._k1)
         self._patch(sw, 'windowed_ah', lambda f: self._k2(f, 12))
         self._patch(sw, 'windowed_ahw2', lambda f: self._k2(f, 18))
+        self._patch(cuda_scatter, 'segment_sum_ordered', self._k2s)
         self._patch(sw, 'row_gather', self._k3)
         self._patch(sw, 'row_group_sum', self._k3f)
 
@@ -166,6 +168,16 @@ class Spans:
             self._record('k2', bounds.k2_bound(
                 a[0].shape[0], _nbytes(*tensors), k['num_segments'],
                 out_cols))
+            return out
+        return wrapped
+
+    def _k2s(self, f):
+        def wrapped(rows, target, num_segments, init=None):
+            with torch.profiler.record_function('bench.k2s'):
+                out = f(rows, target, num_segments, init=init)
+            self._record('k2s', bounds.k2s_bound(
+                _nbytes(rows, target, init), num_segments,
+                rows.shape[1] if rows.dim() == 2 else 1))
             return out
         return wrapped
 

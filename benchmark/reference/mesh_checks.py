@@ -227,8 +227,3 @@ def gaussian_k(vertices, faces):
     K = torch.where(deg > 0, K, torch.zeros_like(K))
     return (K + vsum(K[dst])) / (1.0 + deg)
 
-
-def radial_gap(vertices, centre, radius):
-    """RMS over the vertices of their distance from the sphere."""
-    r = torch.sqrt(((vertices - centre) ** 2).sum(1))
-    return float(torch.sqrt(((r - radius) ** 2).mean()))

@@ -37,7 +37,8 @@ def test_cpu_run_line(trace):
     check_line(r)
     assert r['correct'] and r['failed'] == 0 and r['attempted'] >= 1
     want = {'fit_s', 'setup_s'} if not trace else {
-        'seed_s', 'remesh_s', 'surgery_s', 'rebuild_s', 'block_s'}
+        'seed_s', 'remesh_s', 'surgery_s', 'rebuild_s', 'block_s',
+        'prep_s', 'update_s', 'remesh_engine_s', 'seed_field_s'}
     assert set(r['metrics']) == want
     assert r['compared']['defects']['value'] == 0
 

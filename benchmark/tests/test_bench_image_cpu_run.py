@@ -1,7 +1,8 @@
 """The image cell (``image5nm.recipe``) driven end to end on the CPU
 through the port's plain versions, at a size a test holds, as
 ``bench_tiny`` does for the points cell: the run is ``correct`` and its
-traced line reads ``recipe_s`` alone, and the bfloat16 control and each
+traced line reads the span metrics the manifest lists for the cell (no
+device metric from a CPU run), and the bfloat16 control and each
 fault of ``benchmark.faults`` planted in the timed path come out not
 correct.
 
@@ -57,7 +58,9 @@ def test_image_cpu_run_line(trace):
     r = run(trace=trace)
     assert r['correct'] and r['failed'] == 0 and r['attempted'] >= 1, \
         r['compared']
-    want = {'fit_s', 'setup_s'} if not trace else {'recipe_s'}
+    want = {'fit_s', 'setup_s'} if not trace else {
+        'recipe_s', 'seed_s', 'seed_field_s', 'prep_s', 'remesh_s',
+        'remesh_engine_s', 'surgery_s', 'rebuild_s', 'block_s', 'update_s'}
     assert set(r['metrics']) == want
     assert r['device']['platform'] == 'cpu'
     assert r['compared']['defects']['value'] == 0

@@ -24,13 +24,17 @@ def test_forbidden_modules_by_whole_top_level_name(monkeypatch):
 
 
 def test_reference_imports_nothing_of_the_port():
+    """Every module under ``reference/``, the true shapes under
+    ``reference/shapes/`` too."""
     import ast
     import os
     ref = os.path.join(harness.HERE, 'reference')
-    for fn in os.listdir(ref):
-        if not fn.endswith('.py'):
-            continue
-        tree = ast.parse(open(os.path.join(ref, fn)).read())
+    files = [os.path.join(d, f) for d, _, fs in os.walk(ref) for f in fs
+             if f.endswith('.py')]
+    assert os.path.join(ref, 'shapes', 'ersim.py') in files
+    for fn in files:
+        with open(fn) as fh:
+            tree = ast.parse(fh.read())
         for node in ast.walk(tree):
             if isinstance(node, ast.Import):
                 tops = [a.name.split('.')[0] for a in node.names]

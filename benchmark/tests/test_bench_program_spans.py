@@ -1,8 +1,8 @@
 """The readers of the port's own spans (``prep_s``, ``update_s``,
 ``remesh_engine_s``, ``seed_field_s``): each reads every fit of a traced
 run of the tiny cell, within the fit's wall, and a fit whose trace lacks
-their kinds reads none.  The manifest does not list them yet, so the
-readers are held here on the fits the harness records."""
+their kinds reads none: held here on each fit the harness records, where
+the traced line gives only their means."""
 
 import pytest
 
