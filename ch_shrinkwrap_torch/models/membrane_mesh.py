@@ -340,17 +340,21 @@ class MembraneMesh(TriangleMesh):
         windowed search (in the points' own order) when brute force
         would be too large."""
         centers = ma.positions[ma.faces.long()].mean(1)
-        N = pts.shape[0]
-        if N * ma.faces.shape[0] > 2e9:
+        N, Fp = pts.shape[0], ma.faces.shape[0]
+        if N * Fp > 2e9:
             order = torch.from_numpy(fit_point_order(pts.cpu().numpy())
                                      ).to(pts.device)
-            d, fi = _corr.nearest_face_windowed(pts[order], centers,
-                                                ma.f_mask)
+            with tracing.span(self, 'search', method='windowed',
+                              n_points=N, n_faces=Fp):
+                d, fi = _corr.nearest_face_windowed(pts[order], centers,
+                                                    ma.f_mask)
             inv = torch.empty_like(order)
             inv[order] = torch.arange(N, device=pts.device)
             return d[inv], fi[inv], centers
-        d, fi = _corr.nearest_face_bruteforce(pts, centers, ma.f_mask,
-                                              face_chunk=self.face_chunk)
+        with tracing.span(self, 'search', method='brute', n_points=N,
+                          n_faces=Fp):
+            d, fi = _corr.nearest_face_bruteforce(
+                pts, centers, ma.f_mask, face_chunk=self.face_chunk)
         return d, fi, centers
 
     # ------------------------------------------------------------------
@@ -875,7 +879,7 @@ class MembraneMesh(TriangleMesh):
                                    and ma.positions.shape[0]
                                    > meshdata.HCGC_MIN_VP
                                    and uniform_weights),
-                        spmd_mesh=dmesh)
+                        spmd_mesh=dmesh, trace=trace)
                     if dmesh is not None:
                         # every rank goes on from rank 0's positions and K
                         sharding.broadcast_from_rank0(f_new, diag.K)

@@ -28,6 +28,7 @@ small reductions.
 
 from __future__ import annotations
 
+import contextlib
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -153,7 +154,7 @@ def cg_block(positions, faces, f_mask, v_mask, nbr_v,
              corr_method='brute', cell_size=1.0, face_nbrs=None,
              polish_iters=0, tables=None, face_hcgc=False,
              active_iters=None, nbr_f=None, want_curv_K=False,
-             spmd_mesh=None):
+             spmd_mesh=None, trace=None):
     """Run up to ``num_iters`` CG iterations; returns (new_positions,
     SolverDiagnostics).
 
@@ -185,6 +186,11 @@ def cg_block(positions, faces, f_mask, v_mask, nbr_v,
         and the residual norm are all-reduced, and every rank takes rank
         0's orthogonality statistic, so all ranks stop together.  The
         per-point diagnostics stay rank-local.
+    trace : the fit's ``utils.tracing.FitTrace``: each iteration's
+        nearest-face search closes into a ``search`` span under the
+        spans open around the call (extras ``method``, ``n_points`` and
+        ``n_faces``, the padded faces it scans); host clock only, no
+        synchronization
     """
     corr_method = CORR_ALIASES.get(corr_method, corr_method)
     if corr_method not in CORR_METHODS:
@@ -248,19 +254,23 @@ def cg_block(positions, faces, f_mask, v_mask, nbr_v,
                                                     tri=tri)
 
         # --- correspondence
-        if corr_method == 'windowed':
-            dmean, fi, meta = corr.nearest_face_windowed(
-                points, centers, f_mask, return_meta=True,
-                starts=corr_starts, prep=corr_prep, sub_ids=corr_sub)
-        elif corr_method == 'grid':
-            dmean, fi = corr.nearest_face_grid(points, centers, f_mask,
-                                               cell_size)
-        elif corr_method == 'blocked':
-            # expects fit_point_order-sorted points
-            dmean, fi = corr.nearest_face_blocked(points, centers, f_mask)
-        else:
-            dmean, fi = corr.nearest_face_bruteforce(
-                points, centers, f_mask, face_chunk=face_chunk)
+        search = contextlib.nullcontext() if trace is None else \
+            trace.span('search', method=corr_method, n_points=N, n_faces=Fp)
+        with search:
+            if corr_method == 'windowed':
+                dmean, fi, meta = corr.nearest_face_windowed(
+                    points, centers, f_mask, return_meta=True,
+                    starts=corr_starts, prep=corr_prep, sub_ids=corr_sub)
+            elif corr_method == 'grid':
+                dmean, fi = corr.nearest_face_grid(points, centers, f_mask,
+                                                   cell_size)
+            elif corr_method == 'blocked':
+                # expects fit_point_order-sorted points
+                dmean, fi = corr.nearest_face_blocked(points, centers,
+                                                      f_mask)
+            else:
+                dmean, fi = corr.nearest_face_bruteforce(
+                    points, centers, f_mask, face_chunk=face_chunk)
         if corr_method != 'brute' and face_nbrs is not None \
                 and polish_iters > 0:
             dmean, fi = corr.refine_correspondence(
@@ -447,7 +457,7 @@ def block_call(positions, faces, f_mask, v_mask, nbr_v,
                lam0, shrink_lam, *, num_iters, active_iters,
                use_shrink, face_chunk, corr_method, face_nbrs,
                cell_size=1.0, tables=None, nbr_f=None, want_curv_K=False,
-               face_hcgc=False, spmd_mesh=None):
+               face_hcgc=False, spmd_mesh=None, trace=None):
     """The one call shape of ``cg_block`` the fit loop uses."""
     return cg_block(
         positions, faces, f_mask, v_mask, nbr_v,
@@ -457,4 +467,4 @@ def block_call(positions, faces, f_mask, v_mask, nbr_v,
         corr_method=corr_method, cell_size=cell_size,
         face_nbrs=face_nbrs, tables=tables,
         nbr_f=nbr_f, want_curv_K=want_curv_K, face_hcgc=face_hcgc,
-        spmd_mesh=spmd_mesh)
+        spmd_mesh=spmd_mesh, trace=trace)

@@ -35,7 +35,7 @@ FIT_KINDS = {
     'seed/remesh/engine', 'seed/remesh/topology', 'seed/remesh/components',
     'construct', 'prep', 'prep/order', 'prep/upload',
     'cg_block', 'cg_block/sort', 'cg_block/pad', 'cg_block/tables',
-    'cg_block/block', 'cg_block/update',
+    'cg_block/block', 'cg_block/block/search', 'cg_block/update',
     'punch_holes', 'remove_necks', 'remove_necks/curvature',
     'remove_necks/repair', 'remove_necks/inner', 'short_edges',
     'remesh', 'remesh/engine', 'remesh/topology', 'remesh/components'}
