@@ -345,14 +345,17 @@ class MembraneMesh(TriangleMesh):
             order = torch.from_numpy(fit_point_order(pts.cpu().numpy())
                                      ).to(pts.device)
             with tracing.span(self, 'search', method='windowed',
-                              n_points=N, n_faces=Fp):
+                              n_points=N, n_faces=Fp,
+                              route=_corr.search_route('windowed',
+                                                       pts.device)):
                 d, fi = _corr.nearest_face_windowed(pts[order], centers,
                                                     ma.f_mask)
             inv = torch.empty_like(order)
             inv[order] = torch.arange(N, device=pts.device)
             return d[inv], fi[inv], centers
         with tracing.span(self, 'search', method='brute', n_points=N,
-                          n_faces=Fp):
+                          n_faces=Fp,
+                          route=_corr.search_route('brute', pts.device)):
             d, fi = _corr.nearest_face_bruteforce(
                 pts, centers, ma.f_mask, face_chunk=self.face_chunk)
         return d, fi, centers

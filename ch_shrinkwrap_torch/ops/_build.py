@@ -1,9 +1,9 @@
 """Build and load the port's CUDA kernels.
 
 The kernel sources in ``csrc/`` (``window.cu``, ``scatter.cu``,
-``gather.cu``, ``knn_field.cu``) have plain ``extern "C"`` launch
-functions and include no PyTorch header, so ``nvcc`` compiles each in
-seconds.  On first use :func:`lib` compiles the sources in parallel (one
+``gather.cu``, ``knn_field.cu``, ``brute.cu``) have plain ``extern "C"``
+launch functions and include no PyTorch header, so ``nvcc`` compiles
+each in seconds.  On first use :func:`lib` compiles the sources in parallel (one
 ``nvcc`` process per source), links them into one ``libcsw_kernels.so``
 for ``sm_90a`` and loads it with ``ctypes``.
 
@@ -27,7 +27,8 @@ import threading
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, 'csrc')
-SOURCES = ('window.cu', 'scatter.cu', 'gather.cu', 'knn_field.cu')
+SOURCES = ('window.cu', 'scatter.cu', 'gather.cu', 'knn_field.cu',
+           'brute.cu')
 BUILD_ROOT = os.path.join(_PKG, '_build')
 LIB_NAME = 'libcsw_kernels.so'
 ARCH = ['-gencode', 'arch=compute_90a,code=sm_90a']
@@ -183,6 +184,18 @@ def _declare(L):
         vp, vp,                             # out, live
         vp]                                 # stream
     L.csw_knn_field.restype = i32
+    L.csw_brute_min.argtypes = [
+        vp, vp, vp,                         # points, centers, f_mask
+        i32, i32, i32,                      # N, Fp, splits
+        vp, vp,                             # table, part (workspace)
+        vp, vp,                             # dist, idx
+        vp]                                 # stream
+    L.csw_brute_min.restype = i32
+    L.csw_brute_splits.argtypes = [i32, i32]  # Fp, splits
+    L.csw_brute_splits.restype = i32
+    # points, tile, group span, chunk, blocks an SM
+    L.csw_brute_schedule.argtypes = [vp, vp, vp, vp, vp]
+    L.csw_brute_schedule.restype = None
     L.csw_error_string.argtypes = [i32]
     L.csw_error_string.restype = ctypes.c_char_p
 

@@ -2,8 +2,8 @@
 
 Counterpart of the JAX package's ``ops/correspondence.py``:
 
-* ``nearest_face_bruteforce`` — exact, streamed over point blocks x
-  face chunks with a running (min, argmin) merge.
+* ``nearest_face_bruteforce`` — exact, over every face: the brute-force
+  kernel (``cuda_brute``; its plain version on the CPU).
 * ``nearest_face_grid`` — a spatial hash grid over the face centres,
   the 27 cells around each point plus a hashed subsample.
 * ``nearest_face_blocked`` — per-block candidate tables for sorted
@@ -30,7 +30,7 @@ import torch
 
 from ..utils.math import fma_f32
 from .ordering import _subsample_ids
-from . import cuda_scatter, cuda_window
+from . import cuda_brute, cuda_scatter, cuda_window
 from .cuda_scatter import route
 from .cuda_window import CORR_A, CORR_W
 
@@ -66,31 +66,13 @@ def nearest_face_bruteforce(points, centers, f_mask, face_chunk=4096,
     idx (N,) int32).  Ties go to the lowest face id.  The squared
     distances are rounded as the JAX package's jitted ones are (XLA's
     FMA chains, through :func:`sumsq3` and :func:`_dot3`), so the ids
-    agree with it even on near-ties; the float64 temporaries of
-    :func:`fma_f32` are why the point blocks are small."""
-    N = points.shape[0]
-    Fp = centers.shape[0]
-    c2 = _masked_c2(centers, f_mask)
-    d_out = torch.empty((N,), dtype=torch.float32, device=points.device)
-    i_out = torch.empty((N,), dtype=torch.int32, device=points.device)
-    for p0 in range(0, N, point_block):
-        pb = points[p0:p0 + point_block]
-        p2 = sumsq3(pb)
-        best_d2 = torch.full_like(p2, BIG)
-        best_i = torch.zeros(p2.shape, dtype=torch.int64,
-                             device=points.device)
-        for f0 in range(0, Fp, face_chunk):
-            cc = centers[f0:f0 + face_chunk]
-            d2 = p2[:, None] + c2[None, f0:f0 + face_chunk] \
-                - 2.0 * _dot3(pb, cc)
-            dmin, j = torch.min(d2, dim=1)
-            upd = dmin < best_d2
-            best_d2 = torch.where(upd, dmin, best_d2)
-            best_i = torch.where(upd, j + f0, best_i)
-        d_out[p0:p0 + point_block] = torch.sqrt(torch.clamp(best_d2,
-                                                            min=0.0))
-        i_out[p0:p0 + point_block] = best_i.int()
-    return d_out, i_out
+    agree with it even on near-ties.  On a CUDA tensor this launches the
+    brute-force kernel (``cuda_brute``); on a CPU tensor it runs its
+    plain version, whose temporaries ``face_chunk`` and ``point_block``
+    shape."""
+    return cuda_brute.brute_min(points, centers, f_mask,
+                                face_chunk=face_chunk,
+                                point_block=point_block)
 
 
 # ----------------------------------------------------------------------
@@ -318,6 +300,16 @@ def nearest_face_blocked(points, centers, f_mask, block_size=256,
         i_out.append(torch.where(upd, isub, fid))
     d2f = torch.cat(d_out)[:N]
     return torch.sqrt(torch.clamp(d2f, min=0.0)), torch.cat(i_out)[:N].int()
+
+
+def search_route(method, device):
+    """How a search by ``method`` runs on ``device``: ``'kernel'`` where
+    it launches a hand-written kernel (the brute force's and K1, on a
+    CUDA device), else ``'plain'`` (plain PyTorch).  The ``route`` of a
+    ``search`` span."""
+    on_card = torch.device(device).type == 'cuda'
+    return 'kernel' if on_card and method in ('brute', 'windowed') \
+        else 'plain'
 
 
 def nearest_face(points, centers, f_mask, face_chunk=4096, method='auto',

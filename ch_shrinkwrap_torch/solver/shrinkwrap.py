@@ -255,7 +255,8 @@ def cg_block(positions, faces, f_mask, v_mask, nbr_v,
 
         # --- correspondence
         search = contextlib.nullcontext() if trace is None else \
-            trace.span('search', method=corr_method, n_points=N, n_faces=Fp)
+            trace.span('search', method=corr_method, n_points=N, n_faces=Fp,
+                       route=corr.search_route(corr_method, dev))
         with search:
             if corr_method == 'windowed':
                 dmean, fi, meta = corr.nearest_face_windowed(

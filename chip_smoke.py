@@ -5,7 +5,8 @@
 Builds the port's CUDA kernels (K1 window search, K2 windowed scatter
 and the ordered segment sum every other accumulation of the fit runs
 through, K3 row gather and K3f, the fold's fused gather + masked group
-sum, and the seed's bounded k-th-NN density field) with nvcc and the
+sum, the seed's bounded k-th-NN density field and the brute-force
+nearest-face search) with nvcc and the
 native host engine (native/topology.cpp, the remesh and surgery of every
 fit) with g++, failing when either cannot be built or loaded; holds
 each kernel against its plain PyTorch version at the shapes of the
@@ -20,7 +21,10 @@ the longest segment up to every row on one face, and K2s with every
 row on one vertex.  The seed's field is held to the host engine
 (native.knn_field) and to its plain version, bit for bit, on the 1e6
 cloud at wrap_start(offset=25, grid_n=48)'s 117,649 queries, and timed
-beside both.  It then times the bench
+beside both.  The brute-force search is held to its plain version, bit
+for bit, at the evaluation sweep's shape (19,700 points, 70,656 faces),
+on exact ties placed on its schedule's seams and on a lattice, and
+timed beside its bound and its plain version.  It then times the bench
 configuration's CG block, and drives the 20-iteration no-surgery
 MembraneMesh.shrink_wrap fit of a 1e6-localization sphere cloud (R = 500
 nm, sigma = 5 nm) from its marching-cubes seed twice, counting the
@@ -52,10 +56,12 @@ and through their plain versions must agree within 0.2 nm in R.
 Phase sweep runs the evaluation harness on configs/test_ersim.yaml
 (the ERSim shape, 39 iterations): the entry must write a metrics row of
 the right topology (euler 0, one manifold component), and a second
-evaluate in the same directory must skip it.  Its brute-force search is
-the path of segment_sum_ordered (the A^T scatter), which must launch
-there; the windowed fits at their capacity give it no work, so the
-kernel table's launches of segment_sum_ordered are the sweep's.
+evaluate in the same directory must skip it; the same sweep with every
+kernel replaced by its plain version must write the same surface bit
+for bit and the same row but for the fit's duration.  Its brute-force
+search kernel and segment_sum_ordered (the A^T scatter) must launch
+there; the windowed fits at their capacity give them no work, so the
+kernel table's launches of both are the sweep's.
 
 Phase shard runs the bench configuration's CG block through
 sharded_cg_block at world size 1 (NCCL) and 2 against the one-process
@@ -104,10 +110,10 @@ import numpy as np
 
 # per-phase deadlines in seconds, each about twice the phase's slowest
 # run on an H100 or more; they add up to 1150, so the whole run ends
-# inside 1200 s (the expected total is about 6 minutes)
-DEADLINES = {'env': 15, 'build': 40, 'kernels': 130, 'cg_block': 20,
-             'fit': 110, 'shard': 110, 'corr': 205, 'fit99': 60,
-             'punch': 40, 'image': 100, 'sweep': 180, 'grids': 140}
+# inside 1200 s (the expected total is about 10 minutes)
+DEADLINES = {'env': 15, 'build': 40, 'kernels': 160, 'cg_block': 20,
+             'fit': 95, 'shard': 110, 'corr': 200, 'fit99': 50,
+             'punch': 40, 'image': 60, 'sweep': 300, 'grids': 60}
 
 # H100 SXM peaks (NVIDIA data sheet) for the bound column
 HBM_BYTES_PER_S = 3.35e12
@@ -555,6 +561,97 @@ def k1_lattice_case(device, nb=64, Fp=4096, W=1024, nsub=256, seed=0):
             t((cen * cen).sum(0)), corr.subsample_ids(Fp, nsub, dev), W, 3)
 
 
+# the evaluation sweep's ERSim entry (configs/test_ersim.yaml): ~19.7k
+# localizations against its blocks' 'final' capacity of 70,656 padded faces
+BRUTE_N, BRUTE_FP = 19_700, 70_656
+
+
+def brute_case(device, n_points=BRUTE_N, n_faces=BRUTE_FP, seed=0):
+    """Brute-force search inputs: a noisy R = 500 nm sphere cloud
+    against face centres on the same sphere, every 11th face masked and
+    the last 30% masked (a capacity's padding).  Returns (points,
+    centers, f_mask)."""
+    import torch
+    rng = np.random.default_rng(seed)
+
+    def sphere(n, sigma):
+        d = rng.normal(size=(n, 3))
+        d /= np.linalg.norm(d, axis=1)[:, None]
+        return (d * RADIUS + rng.normal(scale=sigma, size=(n, 3))).astype(
+            np.float32)
+
+    mask = np.ones(n_faces, bool)
+    mask[3::11] = False
+    mask[int(0.7 * n_faces):] = False
+    dev = torch.device(device)
+    return (torch.from_numpy(sphere(n_points, SIGMA)).to(dev),
+            torch.from_numpy(sphere(n_faces, 1.0)).to(dev),
+            torch.from_numpy(mask).to(dev))
+
+
+def brute_tie_case(device, n_points=300, n_faces=8525):
+    """Brute-force inputs whose minima are exact ties: pairs of faces
+    with one centre, the pairs placed on the seams of the built kernel's
+    schedule (``cuda_brute.schedule()``) and of its face splits at this
+    shape (``cuda_brute.splits``): within a chunk, across a chunk, two
+    thread groups' spans, a staging tile and a split, an earlier group
+    of a later tile against a later group of an earlier tile, the last
+    two faces; in two pairs the lower face is masked.  Every other face
+    lies 1e5 nm away; the points sit within 1 nm of their pair's
+    centre, several points a pair, and span two point tiles.  Returns
+    (points, centers, f_mask, expected idx): the lower valid face of
+    each point's pair."""
+    import torch
+    from ch_shrinkwrap_torch.ops import cuda_brute
+    dev = torch.device(device)
+    _, tile, group_span, chunk, _ = cuda_brute.schedule()
+    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    per = -(-n_faces // cuda_brute.splits(n_points, n_faces, n_sms))
+    span = -(-per // tile) * tile
+    check(2 * span < n_faces, f'brute ties: one split ({span} faces)')
+    pairs = [(17, 18), (5 * chunk - 1, 5 * chunk),
+             (group_span - 1, group_span), (tile - 1, tile),
+             (3 * group_span + 2, tile + 2), (span - 1, span),
+             (9, span + 9), (span + 700, 2 * span + 3),
+             (n_faces - 2, n_faces - 1)]
+    masked = [(100, 101), (span - 5, span + 20)]
+    ids = [f for pr in pairs + masked for f in pr]
+    check(len(set(ids)) == len(ids), 'brute ties: pairs overlap')
+    rng = np.random.default_rng(5)
+    d = rng.normal(size=(n_faces, 3))
+    cen = d / np.linalg.norm(d, axis=1)[:, None] * 1e5
+    mask = np.ones(n_faces, bool)
+    pts, want = [], []
+    for k, (a, b) in enumerate(pairs + masked):
+        c = np.array([200.0 * k - 900.0, 37.25, -12.5])
+        cen[a] = cen[b] = c
+        if (a, b) in masked:
+            mask[a] = False
+        n = n_points // len(pairs + masked) + (
+            k < n_points % len(pairs + masked))
+        pts.append(c + rng.uniform(-1.0, 1.0, (n, 3)))
+        want += [b if (a, b) in masked else a] * n
+    def t(a, dt):
+        return torch.from_numpy(np.ascontiguousarray(a, dt)).to(dev)
+
+    return (t(np.vstack(pts), np.float32), t(cen, np.float32),
+            t(mask, bool), t(want, np.int32))
+
+
+def brute_lattice_case(device, n_points=5000, n_faces=9000, seed=0):
+    """Brute-force inputs on an integer lattice: points and centres with
+    small integer coordinates, so every distance is an exact integer and
+    most minima are ties among many faces; every 7th face masked."""
+    import torch
+    rng = np.random.default_rng(seed)
+    dev = torch.device(device)
+    mask = np.ones(n_faces, bool)
+    mask[2::7] = False
+    return tuple(torch.from_numpy(a).to(dev) for a in (
+        rng.integers(-4, 5, (n_points, 3)).astype(np.float32),
+        rng.integers(-4, 5, (n_faces, 3)).astype(np.float32), mask))
+
+
 def adversarial_rows(inp):
     """K2 rows that leave the fit path: a two-step adjacency polish
     moves some faces, and 0.1% of the rows get a random face, so rows
@@ -953,6 +1050,59 @@ def phase_kernels(device='cuda', n_points=N_POINTS, mesh_fn=_kernel_mesh,
                     live=int(live.sum()),
                     misses=int((field == 2 * np.float32(bound)).sum())))
     progress('field')
+
+    # ---- the brute-force search ---------------------------------------
+    # the kernel against its plain version on the card at the sweep's
+    # shape, with ties on the schedule's seams and on a lattice; ms is
+    # all the device work of a call (table, search, merge),
+    # search_ms the search kernel alone; plain_ms the plain version's
+    # wall on the card and plain_launches its device events a search
+    from ch_shrinkwrap_torch.ops import cuda_brute
+    bargs = brute_case(dev)
+    bk = cuda_brute.brute_min(*bargs)
+    bp = cuda_brute.brute_min_plain(*bargs)
+    n_bd = bits_differ(bk[0], bp[0])
+    n_bi = int((bk[1] != bp[1]).sum())
+    check(n_bd == 0 and n_bi == 0, f'brute: {n_bi} ids and {n_bd} '
+          f'distances differ from the plain version in bits')
+    *tie_args, want = brute_tie_case(dev)
+    for fn in (cuda_brute.brute_min, cuda_brute.brute_min_plain):
+        n_tie = int((fn(*tie_args)[1] != want).sum())
+        check(n_tie == 0, f'brute ties ({fn.__name__}): {n_tie} points '
+              f'not matched to the lowest valid id of their pair')
+    lat = brute_lattice_case(dev)
+    for a_, b_ in zip(cuda_brute.brute_min(*lat),
+                      cuda_brute.brute_min_plain(*lat)):
+        check(bits_differ(a_, b_) == 0,
+              'brute lattice ties: kernel and plain version differ')
+    N_b, Fp_b = bargs[0].shape[0], bargs[1].shape[0]
+    tb = timer(lambda: cuda_brute.brute_min(*bargs))
+    tbs = timer(lambda: cuda_brute.brute_min(*bargs),
+                match='brute_min_kernel')
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cuda_brute.brute_min_plain(*bargs)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    plain_launches = len(device_events(
+        lambda: cuda_brute.brute_min_plain(*bargs), 1))
+    # FMUL, 2 FFMA, 2 FADD and 1 FMNMX a pair, an FFMA counted as two
+    bms, bby = bound_ms(nbytes(*bargs, bk[0], bk[1]), 8.0 * N_b * Fp_b)
+    recs['brute'] = dict(
+        name='brute_min', route='cuda',
+        source='ch_shrinkwrap_torch/csrc/brute.cu',
+        replaces="no Pallas kernel: the JAX package's jitted lax.scan "
+                 "(ops/correspondence.py nearest_face_bruteforce)",
+        max_abs_err=0.0, ms=tb['ms'], call_ms=tb['call_ms'],
+        plain_ms=plain_ms, bound_ms=bms, bound_by=bby, library_ms=None,
+        checks=dict(search_ms=tbs['ms'], events=tb['launches'],
+                    plain_launches=plain_launches,
+                    bits_differ_dist=n_bd, ids_differ=n_bi, N=N_b,
+                    Fp=Fp_b, valid=int(bargs[2].sum()),
+                    splits=cuda_brute.splits(
+                        N_b, Fp_b, torch.cuda.get_device_properties(
+                            dev).multi_processor_count)))
+    progress('brute')
     return recs
 
 
@@ -1036,16 +1186,17 @@ WINDOWED_PATH = ('K1', 'K2', 'K3', 'K3f')
 
 
 def kernel_wrappers():
-    """The six kernel wrappers, whose ``launches`` count kernel
+    """The seven kernel wrappers, whose ``launches`` count kernel
     launches."""
     from ch_shrinkwrap_torch.ops import cuda_window, cuda_scatter
-    from ch_shrinkwrap_torch.ops import cuda_field, cuda_gather
+    from ch_shrinkwrap_torch.ops import cuda_brute, cuda_field, cuda_gather
     return {'K1': cuda_window.window_min,
             'K2': cuda_scatter.windowed_scatter,
             'segsum': cuda_scatter.segment_sum_ordered,
             'K3': cuda_gather.row_gather,
             'K3f': cuda_gather.row_group_sum,
-            'field': cuda_field.knn_field}
+            'field': cuda_field.knn_field,
+            'brute': cuda_brute.brute_min}
 
 
 @contextlib.contextmanager
@@ -1053,23 +1204,26 @@ def plain_versions():
     """Route the fit's path through each kernel's plain PyTorch version
     (the reference run held against the kernels on the same card)."""
     from ch_shrinkwrap_torch.ops import cuda_window, cuda_scatter
-    from ch_shrinkwrap_torch.ops import cuda_field, cuda_gather
+    from ch_shrinkwrap_torch.ops import cuda_brute, cuda_field, cuda_gather
     from ch_shrinkwrap_torch.solver import shrinkwrap
     saved = (cuda_window.window_min, cuda_scatter.windowed_scatter,
              cuda_scatter.segment_sum_ordered, shrinkwrap.row_gather,
-             shrinkwrap.row_group_sum, cuda_field.knn_field)
+             shrinkwrap.row_group_sum, cuda_field.knn_field,
+             cuda_brute.brute_min)
     cuda_window.window_min = cuda_window.window_min_plain
     cuda_scatter.windowed_scatter = cuda_scatter.windowed_scatter_plain
     cuda_scatter.segment_sum_ordered = cuda_scatter.segment_sum_ordered_plain
     shrinkwrap.row_gather = cuda_gather.row_gather_plain
     shrinkwrap.row_group_sum = cuda_gather.row_group_sum_plain
     cuda_field.knn_field = cuda_field.knn_field_plain
+    cuda_brute.brute_min = cuda_brute.brute_min_plain
     try:
         yield
     finally:
         (cuda_window.window_min, cuda_scatter.windowed_scatter,
          cuda_scatter.segment_sum_ordered, shrinkwrap.row_gather,
-         shrinkwrap.row_group_sum, cuda_field.knn_field) = saved
+         shrinkwrap.row_group_sum, cuda_field.knn_field,
+         cuda_brute.brute_min) = saved
 
 
 def phase_fit(device='cuda', n_points=N_POINTS, grid_n=48, iters=20,
@@ -1366,24 +1520,44 @@ def check_image(fit, launches, iters=100, voxel=VOXEL):
               f'{key} was not launched during the image fit')
 
 
+def _stl_digest(out):
+    names = sorted(n for n in os.listdir(out) if n.endswith('.stl'))
+    check(len(names) == 1, f'sweep: {len(names)} surfaces written')
+    with open(os.path.join(out, names[0]), 'rb') as fh:
+        return digest(np.frombuffer(fh.read(), np.uint8))
+
+
 def phase_sweep(config=None, device='cuda', seed=0):
     """The evaluation harness on a sweep config (default
     configs/test_ersim.yaml), then the same sweep again in the same
-    output directory, which must skip the finished entry."""
+    output directory, which must skip the finished entry, then the
+    sweep with every kernel replaced by its plain version.  Returns the
+    rows and the sha256 digest of each run's final surface (its STL
+    file)."""
     import tempfile
     from ch_shrinkwrap_torch.eval.harness import evaluate
     if config is None:
         config = os.path.join(HERE, 'configs', 'test_ersim.yaml')
     with tempfile.TemporaryDirectory() as out:
         t0 = time.time()
-        rows = evaluate(config, out_dir=out, seed=seed, device=device)
+        rows = evaluate(config, out_dir=out, seed=seed, device=device,
+                        save_stl=True)
         t1 = time.time()
         again = evaluate(config, out_dir=out, seed=seed, device=device)
         t2 = time.time()
         with open(os.path.join(out, 'metrics.jsonl')) as fh:
             n_lines = len(fh.read().splitlines())
+        sha = _stl_digest(out)
+    with tempfile.TemporaryDirectory() as out, plain_versions():
+        t3 = time.time()
+        plain_rows = evaluate(config, out_dir=out, seed=seed, device=device,
+                              save_stl=True)
+        t4 = time.time()
+        plain_sha = _stl_digest(out)
     return dict(rows=rows, first_s=t1 - t0, restart_s=t2 - t1,
-                restart_rows=len(again), n_lines=n_lines)
+                restart_rows=len(again), n_lines=n_lines, sha_stl=sha,
+                plain_rows=plain_rows, plain_s=t4 - t3,
+                plain_sha_stl=plain_sha)
 
 
 def check_sweep(sw, euler=0):
@@ -1398,6 +1572,14 @@ def check_sweep(sw, euler=0):
           'sweep: topology_correct is not true')
     check(sw['restart_rows'] == 0, 'sweep: the restart did not skip the '
           'finished entry')
+    # every kernel repeats its plain version's bits: the same surface
+    # and the same row but for the fit's duration
+    check(sw['sha_stl'] == sw['plain_sha_stl'],
+          'sweep: the plain-routed fit gives another surface')
+    plain = sw['plain_rows'][0] if sw['plain_rows'] else {}
+    differ = sorted(k for k in set(row) | set(plain)
+                    if k != 'duration' and row.get(k) != plain.get(k))
+    check(not differ, f'sweep: the plain-routed row differs in {differ}')
 
 
 # Phase grids: four sweep entries (configs/) that are correct in the
@@ -1829,6 +2011,8 @@ def main():
                   f'{key} was not launched during the fit')
         check(launches['field'] == 1, f"the seed's field launched "
               f"{launches['field']} times, not once")
+        check(launches['brute'] == 0, f"the windowed fit launched the "
+              f"brute-force search {launches['brute']} times")
         # 20 iterations from the offset-25 seed stop short of the cloud
         # (the JAX package too, PERF.md section 6): the radius bound is
         # one localization sigma; the 39-iteration fit below is held to
@@ -1954,7 +2138,9 @@ def main():
         row = sw['rows'][0] if sw['rows'] else {}
         phase_line('sweep', time.time() - t0, launches=launches_sw,
                    first_s=sw['first_s'], restart_s=sw['restart_s'],
-                   restart_rows=sw['restart_rows'], **{
+                   restart_rows=sw['restart_rows'], plain_s=sw['plain_s'],
+                   sha_stl=sw['sha_stl'], plain_sha_stl=sw['plain_sha_stl'],
+                   **{
                        k: row.get(k) for k in (
                            'sdf_rms', 'berger_mean_distance', 'duration',
                            'ntriangles', 'euler', 'components',
@@ -1963,6 +2149,8 @@ def main():
         check_sweep(sw)
         check(launches_sw['segsum'] > 0,
               'segsum was not launched during the sweep')
+        check(launches_sw['brute'] > 0,
+              'the brute-force search was not launched during the sweep')
     with Watchdog('grids', DEADLINES['grids']):
         t0 = time.time()
         grids = phase_grids(GRID_ENTRIES + (REPEAT_ENTRY, REPEAT_ENTRY))
@@ -1985,15 +2173,15 @@ def main():
 
     print(f'total {time.time() - t_all:.1f}s', flush=True)
     table = []
-    for key in ('K1', 'K2', 'segsum', 'K3', 'K3f', 'field'):
+    for key in ('K1', 'K2', 'segsum', 'K3', 'K3f', 'field', 'brute'):
         rec = dict(recs[key])
         rec.pop('checks')
         # launches: the count of the kernel's path (launches_path): the
-        # north-star fit's (fit99), or for segment_sum_ordered, which
-        # has no work there (WINDOWED_PATH), the sweep's;
-        # launches_fit20, launches_image, launches_sweep: the 20-iteration
-        # fit's, the image recipe's and the sweep's
-        path = 'sweep' if key == 'segsum' else 'fit99'
+        # north-star fit's (fit99), or for segment_sum_ordered and the
+        # brute-force search, which have no work there (WINDOWED_PATH),
+        # the sweep's; launches_fit20, launches_image, launches_sweep: the
+        # 20-iteration fit's, the image recipe's and the sweep's
+        path = 'sweep' if key in ('segsum', 'brute') else 'fit99'
         rec['launches'] = (launches99 if path == 'fit99'
                            else launches_sw)[key]
         rec['launches_path'] = path

@@ -7,7 +7,8 @@ elsewhere.  Run on the card with
 
 from the repository's root (``--noconftest``: the suite's conftest
 configures JAX, which a PyTorch-only install need not have; this file
-imports only the port, and the K1 tie cases of ``chip_smoke.py``).
+imports only the port, and the K1 and brute-force cases of
+``chip_smoke.py``).
 """
 
 import numpy as np
@@ -129,6 +130,84 @@ def test_window_min_ties_take_first_index(dev):
         *(a.cpu() if torch.is_tensor(a) else a for a in lat))
     for a_, b_, c_ in zip(out_k, out_p, out_c):
         assert torch.equal(a_, b_) and torch.equal(a_.cpu(), c_)
+
+
+def _brute_same(args):
+    """The brute-force kernel against its plain version on the card:
+    ids and distances equal bit for bit, one launch a call.  Returns
+    the kernel's (dist, idx)."""
+    from ch_shrinkwrap_torch.ops import cuda_brute
+    n0 = cuda_brute.brute_min.launches
+    dk, ik = cuda_brute.brute_min(*args)
+    torch.cuda.synchronize()
+    assert cuda_brute.brute_min.launches == n0 + 1
+    dp, ip = cuda_brute.brute_min_plain(*args)
+    assert torch.equal(ik, ip)
+    assert same_bits(dk, dp)
+    return dk, ik
+
+
+def test_brute_min_kernel_matches_plain(problem):
+    """The icosphere problem's 62k points against its padded faces."""
+    p = problem
+    _brute_same((p['pts'], p['centers'], p['ma'].f_mask))
+
+
+def test_brute_min_kernel_at_the_sweep_shape(dev):
+    """~2e4 points against 70,656 faces, masked rows interleaved and at
+    the end; and through nearest_face_bruteforce, which launches it."""
+    from chip_smoke import brute_case
+    from ch_shrinkwrap_torch.ops import correspondence as corr
+    from ch_shrinkwrap_torch.ops import cuda_brute
+    args = brute_case(dev)
+    dk, ik = _brute_same(args)
+    assert args[2][ik.long()].all()
+    n0 = cuda_brute.brute_min.launches
+    d, i = corr.nearest_face_bruteforce(*args)
+    assert cuda_brute.brute_min.launches == n0 + 1
+    assert torch.equal(i, ik) and same_bits(d, dk)
+
+
+def test_brute_min_ties_take_the_lowest_id(dev):
+    """Duplicated face centres on the seams of the schedule and of the
+    face splits: the lowest valid id wins in the kernel and in its
+    plain version; on an integer lattice, where ties are everywhere,
+    the two agree on every output."""
+    from chip_smoke import brute_lattice_case, brute_tie_case
+    *args, want = brute_tie_case(dev)
+    _, ik = _brute_same(args)
+    assert torch.equal(ik, want)
+    _brute_same(brute_lattice_case(dev))
+
+
+@pytest.mark.parametrize('n_faces', [0, 1, 5000])
+def test_brute_min_every_face_masked(dev, n_faces):
+    """No valid face: the plain version's (BIG, 0) sentinel, sqrt(BIG)
+    and id 0, for every point."""
+    from chip_smoke import brute_case
+    from ch_shrinkwrap_torch.ops import correspondence as corr
+    pts, cen, mask = brute_case(dev, n_points=700, n_faces=max(n_faces, 1))
+    args = (pts, cen[:n_faces], torch.zeros_like(mask[:n_faces]))
+    dk, ik = _brute_same(args)
+    assert not ik.any()
+    big = torch.tensor(corr.BIG, dtype=torch.float32, device=dev)
+    assert same_bits(dk, torch.sqrt(big).expand_as(dk))
+
+
+# points: one below and above a thread's stride (64), a block (256) and
+# two blocks; faces: a chunk (8), a thread group's span (256), a staging
+# tile (1024) and the face splits (2048, 4096 faces and up)
+BRUTE_N = [1, 63, 65, 255, 257, 511, 513]
+BRUTE_FP = [7, 9, 255, 257, 1023, 1025, 2047, 2049, 4095, 4097, 6145,
+            16385]
+
+
+@pytest.mark.parametrize('n_points', BRUTE_N)
+def test_brute_min_kernel_shapes(dev, n_points):
+    from chip_smoke import brute_case
+    for n_faces in BRUTE_FP:
+        _brute_same(brute_case(dev, n_points=n_points, n_faces=n_faces,
+                               seed=n_points + n_faces))
 
 
 @pytest.mark.parametrize('mode', ['ah', 'ahw2', 'w2', 'given'])

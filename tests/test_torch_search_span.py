@@ -1,9 +1,10 @@
 """PyTorch port, the nearest-face search's span: every iteration of a
 CG block that runs the search closes a ``cg_block/block/search`` record
-with the method, the points and the padded faces it scanned, on the
-brute-force and the windowed paths, and handing the trace to the solver
-changes no bit of the fit.  A diagnostic search outside the loop closes
-a ``search`` record of its own.
+with the method, the points and the padded faces it scanned and its
+route (``'plain'`` on the CPU), on the brute-force and the windowed
+paths, and handing the trace to the solver changes no bit of the fit.
+A diagnostic search outside the loop closes a ``search`` record of its
+own.
 
 Small sphere fits on the CPU: 600 localizations, a remesh every 3
 iterations, 7 iterations (blocks of 3, 3 and 1).
@@ -64,7 +65,8 @@ def test_one_search_span_per_active_iteration(corr_method, method):
         for r in searches:
             assert r.kind == 'cg_block/block/search'
             assert r.extra == dict(method=method, n_points=N_POINTS,
-                                   n_faces=r.extra['n_faces'])
+                                   n_faces=r.extra['n_faces'],
+                                   route='plain')
             assert call[0].start_ns <= r.start_ns <= r.end_ns \
                 <= call[0].end_ns
     n_search = sum(r.kind == 'cg_block/block/search' for r in recs)
@@ -93,3 +95,4 @@ def test_trace_in_the_solver_changes_no_bit(monkeypatch):
     assert [r.kind for r in rec] == ['search']
     assert rec[0].extra['method'] == 'brute'
     assert rec[0].extra['n_points'] == 50
+    assert rec[0].extra['route'] == 'plain'
